@@ -1,0 +1,98 @@
+"""State carried across from the reference package: the port's stand-in for
+weights. A store or plan travels as a flat dict of numpy arrays, so the
+reference's objects convert without this module importing `repro`:
+`pal_to_arrays` / `plan_to_arrays` read any object with the reference's
+attribute names, and `pal_from_arrays` / `plan_from_arrays` rebuild the
+port's own `GraphPAL` / device-resident `FrontierPlan`.
+
+Keys: `intervals.{n_partitions,interval_len}`;
+`partitions.{i}.{interval,src,dst,etype,src_vertices,src_ptr,dst_perm,
+dst_vertices,dst_ptr}` plus optional `partitions.{i}.dead` and
+`partitions.{i}.columns.{name}`; `vertex_columns.{name}.{i}`. A plan's keys
+are the reference's field names; the port's kernel layout (`dst_ptr` and
+the heavy-destination chunks) is derived from `row_dst`."""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from .core.pal import EdgePartition, GraphPAL, IntervalMap
+from .kernels.frontier_expand.ops import (FrontierPlan, _kernel_layout,
+                                         plan_to_device)
+
+__all__ = ["pal_from_arrays", "pal_to_arrays", "plan_from_arrays",
+           "plan_to_arrays"]
+
+_PART_ARRAYS = ("src", "dst", "etype", "src_vertices", "src_ptr", "dst_perm",
+                "dst_vertices", "dst_ptr")
+_PLAN_ARRAYS = ("idx", "mask", "row_dst")
+_PLAN_INTS = ("n_src", "n_dst", "n_edges", "k_slots")
+
+
+def pal_to_arrays(g) -> Dict[str, np.ndarray]:
+    """Flatten a GraphPAL (either package's) into a dict of numpy arrays."""
+    d = {"intervals.n_partitions": np.asarray(g.intervals.n_partitions),
+         "intervals.interval_len": np.asarray(g.intervals.interval_len)}
+    for i, p in enumerate(g.partitions):
+        pre = f"partitions.{i}."
+        d[pre + "interval"] = np.asarray(p.interval, np.int64)
+        for name in _PART_ARRAYS:
+            d[pre + name] = np.asarray(getattr(p, name))
+        if p.dead is not None:
+            d[pre + "dead"] = np.asarray(p.dead)
+        for name, col in p.columns.items():
+            d[pre + "columns." + name] = np.asarray(col)
+    for name, per_interval in g.vertex_columns.items():
+        for i, col in enumerate(per_interval):
+            d[f"vertex_columns.{name}.{i}"] = np.asarray(col)
+    return d
+
+
+def pal_from_arrays(d: Dict[str, np.ndarray]) -> GraphPAL:
+    """Rebuild a port GraphPAL from `pal_to_arrays` output (arrays copied,
+    so the source store and the port never share a mutable array)."""
+    iv = IntervalMap(int(d["intervals.n_partitions"]),
+                     int(d["intervals.interval_len"]))
+    parts = []
+    for i in range(iv.n_partitions):
+        pre = f"partitions.{i}."
+        cols = {k[len(pre) + len("columns."):]: np.array(v)
+                for k, v in d.items() if k.startswith(pre + "columns.")}
+        lo, hi = (int(v) for v in d[pre + "interval"])
+        dead = d.get(pre + "dead")
+        parts.append(EdgePartition(
+            (lo, hi), *(np.array(d[pre + name]) for name in _PART_ARRAYS),
+            columns=cols, dead=None if dead is None else np.array(dead)))
+    vcols: Dict[str, list] = {}
+    for k in sorted((k for k in d if k.startswith("vertex_columns.")),
+                    key=lambda k: int(k.rsplit(".", 1)[1])):
+        name = k[len("vertex_columns."):].rsplit(".", 1)[0]
+        vcols.setdefault(name, []).append(np.array(d[k]))
+    return GraphPAL(iv, parts, vcols)
+
+
+def plan_to_arrays(plan) -> Dict[str, np.ndarray]:
+    """Flatten a FrontierPlan (either package's, numpy arrays) into a dict."""
+    return {name: np.asarray(getattr(plan, name))
+            for name in _PLAN_INTS + _PLAN_ARRAYS}
+
+
+def plan_from_arrays(d: Dict[str, np.ndarray], device) -> FrontierPlan:
+    """Rebuild a port FrontierPlan on `device` from `plan_to_arrays` output."""
+    n_src, n_dst = int(d["n_src"]), int(d["n_dst"])
+    idx = np.asarray(d["idx"], np.int32)
+    mask = np.asarray(d["mask"], bool)
+    row_dst = np.asarray(d["row_dst"], np.int32)
+    # the kernel gathers x[idx] unchecked and walks rows by destination
+    live = idx[mask]
+    if (idx.shape != mask.shape or idx.shape[0] != row_dst.shape[0]
+            or (live.size and (live.min() < 0 or live.max() >= n_src))
+            or (row_dst.size and (row_dst.min() < 0
+                                  or row_dst.max() > n_dst))
+            or (np.diff(row_dst) < 0).any()):
+        raise ValueError("plan arrays are inconsistent: idx/mask/row_dst "
+                         "shapes, source ids or destination order")
+    plan = FrontierPlan(idx, mask, row_dst, n_src, n_dst, int(d["n_edges"]),
+                        int(d["k_slots"]), **_kernel_layout(row_dst, n_dst))
+    return plan_to_device(plan, device)

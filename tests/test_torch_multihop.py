@@ -1,0 +1,139 @@
+"""The port's multi-hop operators and query facades (repro_torch/core) against
+the reference's (repro/core), on the same edges: a bulk `GraphPAL`, a live
+`LSMTree` fed the same insert and delete batches (flushed levels,
+tombstones, a buffered tail), its pinned `read_view()`, and a port
+`GraphPAL` rebuilt from the reference's arrays by `convert`. Results are
+vertex ids and integer counts, so every comparison is exact; the port's
+dense path runs on the CPU (its plain torch version)."""
+import numpy as np
+import pytest
+
+import repro.core as R
+import repro_torch.core as T
+from repro_torch import convert
+from repro_torch.core import multihop as tmh
+
+N, E = 400, 3000
+
+
+def edges(seed: int):
+    """Power-law in-degrees (a zipf head of hubs) over uniform sources."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, N, E)
+    hot = ((rng.zipf(1.8, E) - 1) * 2654435761) % N
+    dst = np.where(rng.random(E) < 0.5, hot, rng.integers(0, N, E))
+    return src, dst
+
+
+def bulk(pkg, seed: int):
+    src, dst = edges(seed)
+    return pkg.GraphPAL.from_edges(src, dst, n_partitions=8, max_id=N - 1)
+
+
+def live(pkg, seed: int):
+    """LSM with flushed levels, tombstones and a still-buffered tail: the
+    same batches into either package."""
+    src, dst = edges(seed)
+    t = pkg.LSMTree(pkg.IntervalMap.for_capacity(N - 1, 16), n_levels=3,
+                    branching=4, buffer_cap=E // 8,
+                    max_partition_edges=E // 4)
+    k = E - E // 10
+    t.insert_edges(src[:k], dst[:k])
+    t.insert_edges(src[k:], dst[k:])
+    rng = np.random.default_rng(seed + 1)
+    for i in rng.choice(k, 60, replace=False):
+        t.delete_edge(int(src[i]), int(dst[i]))
+    return t
+
+
+def same_two_hop(a, b):
+    assert np.array_equal(a.seeds, b.seeds)
+    assert np.array_equal(a.offsets, b.offsets)
+    assert np.array_equal(a.ids, b.ids)
+    assert np.array_equal(a.counts, b.counts)
+    assert a.ids.dtype == b.ids.dtype and a.counts.dtype == b.counts.dtype
+
+
+def same_khop(a, b):
+    assert len(a.levels) == len(b.levels)
+    for x, y in zip(a.levels, b.levels):
+        assert np.array_equal(x, y)
+    assert np.array_equal(a.visited, b.visited)
+
+
+def check_store(ref, port, seed: int):
+    """Every multi-hop operator and facade, reference vs port."""
+    rng = np.random.default_rng(seed)
+    seeds = rng.choice(N, 24, replace=False)
+    for kw in ({}, {"max_friends": 3}, {"exclude": False},
+               {"direction": "in"}):
+        same_two_hop(R.two_hop_counts(ref, seeds, **kw),
+                     T.two_hop_counts(port, seeds, **kw))
+    for kw in ({}, {"exclude": False}, {"direction": "in"}):
+        want = R.two_hop_counts(ref, seeds, **kw)
+        same_two_hop(want, T.two_hop_counts(port, seeds, dense="kernel",
+                                            device="cpu", **kw))
+        same_two_hop(want, R.two_hop_counts(ref, seeds, dense="kernel", **kw))
+    for dense in ("never", "stream", "kernel"):
+        for direction in ("out", "in"):
+            same_khop(R.khop(ref, seeds[:3], 3, direction, dense=dense),
+                      T.khop(port, seeds[:3], 3, direction, dense=dense,
+                             device="cpu"))
+    assert R.triangle_count(ref) == T.triangle_count(port)
+    assert (R.triangle_count(ref, wedge_budget=50)
+            == T.triangle_count(port, wedge_budget=50))
+    s, t = (int(v) for v in seeds[:2])
+    assert R.bfs(ref, s, 4) == T.bfs(port, s, 4, device="cpu")
+    for two_sided in (True, False):
+        assert (R.shortest_path(ref, s, t, 6, two_sided)
+                == T.shortest_path(port, s, t, 6, two_sided, device="cpu"))
+    assert np.array_equal(R.friends_of_friends(ref, s),
+                          T.friends_of_friends(port, s))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bulk_store_matches_reference(seed):
+    check_store(bulk(R, seed), bulk(T, seed), seed)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_live_lsm_matches_reference(seed):
+    ref, port = live(R, seed), live(T, seed)
+    assert sum(len(b) for b in port.buffers) > 0     # a buffered tail
+    assert port.n_edges == ref.n_edges
+    check_store(ref, port, seed)
+
+
+def test_pinned_read_view_matches_reference():
+    ref, port = live(R, 2), live(T, 2)
+    with ref.read_view() as rv, port.read_view() as pv:
+        check_store(rv, pv, 2)
+
+
+def test_convert_pal_from_reference_arrays():
+    ref = bulk(R, 3)
+    port = convert.pal_from_arrays(convert.pal_to_arrays(ref))
+    assert isinstance(port, T.GraphPAL)
+    for a, b in zip(ref.to_coo(), port.to_coo()):
+        assert np.array_equal(a, b)
+    check_store(ref, port, 3)
+
+
+def test_dense_plans_are_memoized_per_device():
+    g = bulk(T, 4)
+    plan = T.dense_plan(g, "out", device="cpu")
+    assert T.dense_plan(g, "out", device="cpu") is plan
+    assert plan.idx.device.type == "cpu"
+    keys = [k for k in T.as_engine(g).plan_cache() if k[0][0] == tmh._PLAN_KEY]
+    assert [k[0][1:] for k in keys] == [("out", "cpu")]
+    # the auto heuristic takes the kernel only where a plan is memoized
+    assert tmh._plan_cached(T.as_engine(g), "out", "cpu")
+    assert not tmh._plan_cached(T.as_engine(g), "out", "cuda")
+
+
+def test_snapshot_paths_wait_for_the_psw_slice():
+    port = live(T, 5)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        port.snapshot()
+    with port.read_view() as view, pytest.raises(NotImplementedError):
+        view.snapshot()
