@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--vertices N] [--edges N] [--seed S]
 
 Run from the root of a checkout: the port is imported from `src/`, and its
-CUDA kernel is built from the checkout's sources into `build/kernels/` at
-first use. The main path is the graph store read by multi-hop queries:
+CUDA kernels are built from the checkout's sources into `build/kernels/` at
+first use (one nvcc per kernel, all started together). The main path is the
+graph store read by multi-hop queries and analysed by PSW:
 
   0. a small graph: the dense kernel path against the per-hop baselines
      (`bfs_perhop`, `friends_of_friends_perhop`);
@@ -21,11 +22,30 @@ first use. The main path is the graph store read by multi-hop queries:
      `read_view()`, bitwise against sparse;
   3. the frontier_expand kernel against its plain torch version at the main
      path's shapes (B = 128 seed panels, B = 1 BFS frontiers): bitwise equal,
-     with times, the bound and a `torch.sparse.mm` yardstick.
+     with times, the bound and a `torch.sparse.mm` yardstick;
+  4. PSW analytics on the bulk store: `build_device_graph` (host build and
+     upload timed apart), `pagerank_device` for 5 iterations in
+     `dense_gather` and `psw_windows` (bitwise equal, and bitwise equal
+     again on a second run), held against a float64 numpy PageRank at
+     rtol 1e-3;
+  5. live snapshots: `LSMTree.snapshot` of phase 2's tree and
+     `ManifestView.snapshot` of a pinned view, bitwise equal in every array
+     and in PageRank to `build_device_graph` of a `GraphPAL` holding the
+     same live edges;
+  6. neighbour aggregation through the segment_ell and psw_spmm kernels:
+     `segment_ell_from_edges` over the bulk store's edges (K = 15, the first
+     fanout of `minibatch_lg`; F = 100, `ogb_products`' d_feat), and
+     `psw_spmm_edges` over a second live `LSMTree` (32,768 vertices,
+     458,752 power-law edges, part still buffered; F = 128) and a
+     Cora-shaped graph (2,708 vertices, 10,556 edges, F = 1,433), each
+     against the edge oracle; then each kernel against its plain version,
+     with times, bound and library yardstick.
 
-The kernel launch count is zeroed before phases 1-2 and read after them.
-Any failed check exits non-zero. The second-to-last line is the card's name
-and power limit from nvidia-smi; the last line is
+Each kernel's launch count is zeroed just before the path that runs it
+(phases 1-2 for frontier_expand, phase 6's aggregation calls for the other
+two) and read just after. Any failed check exits non-zero. The
+second-to-last line is the card's name and power limit from nvidia-smi;
+the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -219,6 +239,7 @@ def phase_live(core, fe_ops, dev, args, clock):
     check(fe_ops.launches > n0, "live two_hop_counts launched no kernel")
     log(f"  live two_hop: {dense.ids.shape[0]} pairs, bitwise equal on the "
         "tree and its pinned view")
+    return t
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -315,6 +336,335 @@ def phase_kernel(torch, core, fe, kernel, g, seeds, frontier, dev, reps):
     return wide, narrow
 
 
+DG_FIELDS = ("src", "dst_local", "mask", "outdeg", "send_idx", "edge_owner",
+             "edge_slot", "seg_ptr")
+PR_MODES = ("dense_gather", "psw_windows")
+
+
+def dg_bytes(dg) -> int:
+    return sum(getattr(dg, f).numel() * getattr(dg, f).element_size()
+               for f in DG_FIELDS if getattr(dg, f) is not None)
+
+
+def pagerank_fp64(src, dst, n: int, n_iters: int = 5,
+                  damping: float = 0.85) -> np.ndarray:
+    """Independent float64 PageRank over an edge list (original ids): the
+    same synchronous iteration as `pagerank_device`."""
+    outdeg = np.bincount(src, minlength=n)
+    inv = 1.0 / np.maximum(outdeg, 1)
+    r = np.ones(n)
+    for _ in range(n_iters):
+        acc = np.bincount(dst, weights=(r * inv)[src], minlength=n)
+        r = (1.0 - damping) + damping * acc
+    return r
+
+
+def phase_psw(torch, core, g, dev, args, clock):
+    log("phase 4 PSW analytics on the bulk store")
+    host = clock("build_device_graph host build", core.build_device_graph, g,
+                 device="cpu")
+    dg = clock("build_device_graph upload", host.to, dev)
+    del host                                   # free the host copy
+    P, E = dg.src.shape
+    log(f"  DeviceGraph: {dg.n_edges} edges in {P} partitions, E_max {E}, "
+        f"window width {dg.window_width}, {dg_bytes(dg) / 2**30:.2f} GiB on "
+        "the device")
+    runs = {}
+    for rep in (1, 2):
+        for mode in PR_MODES:
+            runs[mode, rep] = clock(f"pagerank_device {mode} (5 iters) run "
+                                    f"{rep}", core.pagerank_device, dg, 5,
+                                    mode=mode)
+    first = runs["dense_gather", 1]
+    check(torch.equal(first, runs["psw_windows", 1]),
+          "pagerank_device: dense_gather != psw_windows")
+    for mode in PR_MODES:
+        check(torch.equal(runs[mode, 1], runs[mode, 2]),
+              f"pagerank_device {mode}: a second run differs from the first")
+    n = args.vertices
+    src, dst = g.to_coo()
+    want = clock("float64 numpy PageRank", pagerank_fp64, src, dst, n)
+    del src, dst
+    got = first.reshape(-1).cpu().numpy()[
+        g.intervals.to_internal(np.arange(n))].astype(np.float64)
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    check(bool(np.all(np.isfinite(got))), "pagerank_device: non-finite ranks")
+    check(rel <= 1e-3, f"pagerank_device vs float64: max rel err {rel}")
+    log(f"  pagerank: both modes and both runs bitwise equal; max relative "
+        f"error vs float64 numpy {rel:.3e} (limit 1e-3); rank sum "
+        f"{float(want.sum()):.1f}, max {float(want.max()):.1f}")
+    del dg, runs, first
+
+
+def same_device_graph(torch, a, b) -> bool:
+    return ((a.n_partitions, a.interval_len, a.n_edges)
+            == (b.n_partitions, b.interval_len, b.n_edges)
+            and all(torch.equal(getattr(a, f), getattr(b, f))
+                    for f in DG_FIELDS))
+
+
+def phase_snapshots(torch, core, t, dev, args, clock):
+    log("phase 5 live snapshots of phase 2's LSMTree")
+    dg_t = clock("LSMTree.snapshot", t.snapshot, device=dev)
+    with t.read_view() as view:
+        dg_v = clock("ManifestView.snapshot", view.snapshot, device=dev)
+    src, dst = t.to_coo()
+    g = core.GraphPAL.from_edges(src, dst, n_partitions=16,
+                                 max_id=args.vertices - 1)
+    del src, dst
+    dg_g = clock("build_device_graph(GraphPAL of the live edges)",
+                 core.build_device_graph, g, device=dev)
+    check(same_device_graph(torch, dg_t, dg_g),
+          "LSMTree.snapshot != the GraphPAL DeviceGraph")
+    check(same_device_graph(torch, dg_v, dg_g),
+          "ManifestView.snapshot != the GraphPAL DeviceGraph")
+    for mode in PR_MODES:
+        r = core.pagerank_device(dg_g, 5, mode=mode)
+        check(torch.equal(core.pagerank_device(dg_t, 5, mode=mode), r)
+              and torch.equal(core.pagerank_device(dg_v, 5, mode=mode), r),
+              f"snapshot pagerank {mode} differs from the GraphPAL's")
+    log(f"  {dg_g.n_edges} live edges ({t.total_buffered()} still "
+        "buffered): both snapshots bitwise equal to the GraphPAL "
+        "DeviceGraph in every array and in PageRank (both modes)")
+
+
+def live_tree(core, n: int, e: int, seed: int):
+    """A second live store: power-law edges streamed in 10,000-edge
+    batches, the tail still in the buffers."""
+    t = core.LSMTree(core.IntervalMap.for_capacity(n - 1, 16), n_levels=2,
+                     branching=4, buffer_cap=50_000)
+    src, dst = power_law_graph(n, e, seed=seed)
+    for i in range(0, e, 10_000):
+        t.insert_edges(src[i:i + 10_000], dst[i:i + 10_000])
+    check(t.total_buffered() > 0, "the second live tree buffered no edges")
+    return t
+
+
+def randn(torch, shape, dev, seed: int):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev)
+
+
+def phase_aggregate(torch, core, se, ps, g, dev, args, clock):
+    """The aggregation path through both kernels' entry points, each
+    result against the edge oracle. Returns what the kernel checks need."""
+    from repro_torch.graph import pad_to_ell
+    log("phase 6 neighbour aggregation")
+    n, K, F = args.vertices, 15, 100
+    src, dst = g.to_coo()
+    x = randn(torch, (n, F), dev, args.seed + 10)
+    se.ops.launches = ps.ops.launches = 0      # the aggregation path...
+    h = clock("segment_ell_from_edges bulk store (K=15, F=100)",
+              se.segment_ell_from_edges, src, dst, x, n, K)
+    n2, e2 = 32_768, 458_752
+    t2 = live_tree(core, n2, e2, args.seed + 11)
+    s2, d2 = t2.to_coo()
+    x2 = randn(torch, (n2, 128), dev, args.seed + 12)
+    y2 = clock("psw_spmm_edges live tree (F=128)", ps.psw_spmm_edges,
+               s2, d2, x2, n2)
+    n3, e3 = 2_708, 10_556
+    s3, d3 = power_law_graph(n3, e3, seed=args.seed + 13)
+    x3 = randn(torch, (n3, 1_433), dev, args.seed + 14)
+    y3 = clock("psw_spmm_edges Cora-shaped (F=1433)", ps.psw_spmm_edges,
+               s3, d3, x3, n3)
+    launches = {"segment_ell": se.ops.launches,
+                "psw_spmm": ps.ops.launches}   # ...ends here
+    for name, count in launches.items():
+        check(count > 0, f"the aggregation path launched no {name} kernel")
+
+    # edge oracles: segment_ell over the edges pad_to_ell keeps
+    idx, mask = (torch.from_numpy(a) for a in pad_to_ell(src, dst, n, K))
+    del src, dst
+    rows = torch.arange(n).repeat_interleave(mask.sum(1))
+    kept = idx[mask]
+    want = ps.spmm_dense_torch(kept.to(dev), rows.to(dev), x, n)
+    err = float((h - want).abs().max())
+    check(torch.allclose(h, want, rtol=1e-5, atol=1e-5),
+          f"segment_ell vs the edge oracle: max abs err {err}")
+    log(f"  segment_ell: {int(kept.shape[0])} kept of {g.n_edges} edges, "
+        f"max abs err vs edge oracle {err:.3e} (rtol/atol 1e-5)")
+    del rows, want
+    # psw_spmm against the edge oracle in float64 (the hottest destination
+    # of the live tree has ~126k in-edges)
+    for name, s_, d_, x_, y_ in (("live tree", s2, d2, x2, y2),
+                                 ("Cora-shaped", s3, d3, x3, y3)):
+        si = torch.from_numpy(s_).to(dev)
+        di = torch.from_numpy(d_).to(dev)
+        want = ps.spmm_dense_torch(si, di, x_.double(), x_.shape[0])
+        ok, err, ratio = row_tolerance(y_, want, 1e-4, 1e-4)
+        check(ok, f"psw_spmm {name} vs the edge oracle: max abs err {err}, "
+                  f"{ratio:.2f}x the tolerance")
+        log(f"  psw_spmm {name}: max abs err vs float64 edge oracle "
+            f"{err:.3e}, {ratio:.3f}x the rowwise tolerance 1e-4; largest "
+            f"|out| {float(want.abs().max()):.1f}")
+        del si, di, want
+    del h, y2, y3
+    return launches, (idx.to(dev), mask.to(dev), x, int(kept.shape[0])), \
+        ((s2, d2, x2), (s3, d3, x3))
+
+
+def row_tolerance(got, want, rtol: float, atol: float):
+    """Rowwise check for float32 sums: |got - want| <= atol + rtol * (the
+    largest |want| in that row). At a hub (~126k in-edges in the live
+    tree) a row's terms cancel to values near 0 in some columns, where an
+    elementwise rtol * |want| holds for no float32 summation order (the
+    plain version misses it against float64 too). Returns (ok, max abs
+    err, worst err / tolerance)."""
+    if not got.numel():
+        return True, 0.0, 0.0
+    want = want.double()
+    err = (got.double() - want).abs()
+    tol = atol + rtol * want.abs().amax(1, keepdim=True)
+    ratio = float((err / tol).max())
+    return ratio <= 1.0, float(err.max()), ratio
+
+
+def segment_ell_vs_plain(torch, se, se_kernel, ell, reps: int) -> dict:
+    idx, mask, x, kept = ell
+    N, K = idx.shape
+    M, F = x.shape
+    out = torch.empty((N, F), dtype=torch.float32, device=x.device)
+    se_kernel.launch(idx, mask, x, out)
+    plain = se.segment_ell_torch(idx, mask, x)
+    torch.cuda.synchronize()
+    err = float((out - plain).abs().max())
+    check(torch.equal(out, plain),
+          f"segment_ell kernel != plain version (max abs err {err})")
+    del plain
+    ms = cuda_ms(torch, lambda: se_kernel.launch(idx, mask, x, out), reps)
+    plain_ms = cuda_ms(torch, lambda: se.segment_ell_torch(idx, mask, x),
+                       max(1, reps // 4))
+    w = mask.to(torch.float32)
+    bag = torch.nn.functional.embedding_bag(idx.long(), x,
+                                            per_sample_weights=w,
+                                            mode="sum")
+    torch.cuda.synchronize()
+    lib_err = float((bag - out).abs().max())
+    check(torch.allclose(bag, out, rtol=1e-5, atol=1e-5),
+          f"embedding_bag != segment_ell kernel (max abs err {lib_err})")
+    del bag
+    ii = idx.long()
+    library_ms = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(
+        ii, x, per_sample_weights=w, mode="sum"), reps)
+    del ii, w
+    bytes_once = N * K * 5 + M * F * 4 + N * F * 4
+    gather_bytes = N * K * 5 + kept * F * 4 + N * F * 4
+    ops = kept * F                     # one fp32 add per gathered element
+    return {"N": N, "K": K, "F": F, "kept_edges": kept, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_max_abs_err": lib_err,
+            "bound_ms": max(bytes_once / HBM_BYTES_PER_S,
+                            ops / FP32_OPS_PER_S) * 1e3,
+            "bound_by": ("bytes" if bytes_once / HBM_BYTES_PER_S
+                         >= ops / FP32_OPS_PER_S else "operations"),
+            "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+            "bytes_once": bytes_once, "gather_bytes": gather_bytes}
+
+
+def psw_spmm_vs_plain(torch, ps, ps_kernel, edges, reps: int) -> dict:
+    src, dst, x = edges
+    n, F = x.shape
+    dev = x.device
+    coords_np, tiles_np, nb = ps.prepare_blocks(src, dst, n, 128)
+    coords = torch.from_numpy(coords_np).to(dev)
+    tiles = torch.from_numpy(tiles_np).to(dev)
+    del coords_np, tiles_np                    # free the host copy
+    T = coords.shape[0]
+    xp = torch.nn.functional.pad(x, (0, 0, 0, nb * 128 - n))
+    ptr = ps.tile_ptr(coords, nb)
+    out = torch.empty((nb * 128, F), dtype=torch.float32, device=dev)
+    ps_kernel.launch(ptr, coords, tiles, xp, out)
+    plain = ps.psw_spmm_torch(coords, tiles, xp, nb, 128)
+    torch.cuda.synchronize()
+    ok, err, ratio = row_tolerance(out, plain, 1e-5, 1e-5)
+    check(ok, f"psw_spmm kernel vs plain version at F={F}: max abs err "
+              f"{err}, {ratio:.2f}x the tolerance")
+    again = torch.empty_like(out)
+    ps_kernel.launch(ptr, coords, tiles, xp, again)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), "psw_spmm kernel: a second run differs")
+    del plain, again
+    ms = cuda_ms(torch, lambda: ps_kernel.launch(ptr, coords, tiles, xp,
+                                                 out), reps)
+    plain_ms = cuda_ms(torch, lambda: ps.psw_spmm_torch(coords, tiles, xp,
+                                                        nb, 128),
+                       max(1, reps // 4))
+    # yardstick: one cuSPARSE SpMM of the CSR adjacency, multiplicities
+    # as values
+    ij = torch.from_numpy(np.stack([dst, src])).to(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")        # "sparse CSR is in beta"
+        adj = torch.sparse_coo_tensor(
+            ij, torch.ones(ij.shape[1], device=dev), (n, n)).coalesce() \
+            .to_sparse_csr()
+    lib = torch.sparse.mm(adj, x)
+    torch.cuda.synchronize()
+    lib_ok, lib_err, _ = row_tolerance(lib, out[:n], 1e-4, 1e-4)
+    check(lib_ok, f"torch.sparse.mm vs psw_spmm kernel: max abs err "
+                  f"{lib_err}")
+    del lib
+    library_ms = cuda_ms(torch, lambda: torch.sparse.mm(adj, x), reps)
+    del adj, ij
+    # the function needs each tile read once and one multiply-add per
+    # nonzero tile entry and column; the kernel's dense tile products
+    # (zeros included) are a side figure
+    bytes_once = T * (128 * 128 * 4 + 8) + (nb * 8) + 2 * nb * 128 * F * 4
+    nnz = int(torch.count_nonzero(tiles))
+    ops = 2 * nnz * F
+    dense_flops = 2 * T * 128 * 128 * F
+    return {"n": n, "edges": int(src.shape[0]), "tiles": T, "F": F,
+            "tile_nnz": nnz, "tile_bytes": T * 128 * 128 * 4,
+            "max_abs_err": err,
+            "err_over_tolerance": ratio, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_max_abs_err": lib_err,
+            "bound_ms": max(bytes_once / HBM_BYTES_PER_S,
+                            ops / FP32_OPS_PER_S) * 1e3,
+            "bound_by": ("bytes" if bytes_once / HBM_BYTES_PER_S
+                         >= ops / FP32_OPS_PER_S else "operations"),
+            "bytes_once": bytes_once, "flops": ops,
+            "dense_tile_flops": dense_flops,
+            "dense_tile_tflops_per_s": dense_flops / (ms * 1e-3) / 1e12}
+
+
+def build_kernels(common, kernels) -> None:
+    """Build every kernel's library at once (one nvcc each, all started
+    together), load them, then print ptxas's register and spill report."""
+    t0 = time.perf_counter()
+    common.build_libraries({k.NAME: k.SOURCE for k in kernels})
+    for k in kernels:
+        k.load_library()
+    log(f"kernel build/load: {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(k.library_path().name for k in kernels)})")
+    for k in kernels:
+        log_path = k.library_path().with_suffix(".log")
+        if log_path.exists():
+            for line in log_path.read_text().splitlines():
+                if "registers" in line or "spill" in line or "smem" in line:
+                    log(f"  ptxas {k.NAME}: " + line.strip())
+
+
+def host_memory() -> str:
+    total = "unknown"
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemTotal:"):
+                total = f"{int(line.split()[1]) / 2**20:.2f} GiB"
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    return f"peak host RSS {peak:.2f} GiB, MemTotal {total}"
+
+
+def kernel_entry(name, source, replaces, launches, main, shapes) -> dict:
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches}
+    for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        entry[key] = main[key]
+    entry["shapes"] = shapes
+    return entry
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--vertices", type=int, default=4_000_000)
@@ -332,22 +682,21 @@ def main() -> None:
         fail(f"{SRC}/repro_torch is missing: run from a checkout of the repo")
     sys.path.insert(0, SRC)
     import repro_torch.core as core
+    from repro_torch.kernels import common
     from repro_torch.kernels import frontier_expand as fe
+    from repro_torch.kernels import psw_spmm as ps
+    from repro_torch.kernels import segment_ell as se
     from repro_torch.kernels.frontier_expand import kernel, ops as fe_ops
+    from repro_torch.kernels.psw_spmm import kernel as ps_kernel
+    from repro_torch.kernels.segment_ell import kernel as se_kernel
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    kernel.load_library()
-    log(f"kernel build/load: {time.perf_counter() - t0:.1f} s "
-        f"({kernel.library_path().name})")
-    log_path = kernel.library_path().with_suffix(".log")
-    if log_path.exists():
-        for line in log_path.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas: " + line.strip())
+    build_kernels(common, [kernel, se_kernel, ps_kernel])
+    log(f"  psw_spmm dynamic shared memory: {ps_kernel.smem_bytes()} bytes")
 
     clock = Clock(torch)
     phase_small(core, dev, args.seed)
@@ -355,27 +704,50 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     fe_ops.launches = 0                        # the main path starts here
     g, seeds, frontier = phase_bulk(core, fe_ops, dev, args, clock)
-    phase_live(core, fe_ops, dev, args, clock)
+    t = phase_live(core, fe_ops, dev, args, clock)
     launches = fe_ops.launches                 # ...and ends here
     check(launches > 0, "the main path launched no frontier_expand kernel")
     log(f"main path: {launches} frontier_expand launches, peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, peak "
-        f"host RSS {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB")
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        + host_memory())
 
     wide, narrow = phase_kernel(torch, core, fe, kernel, g, seeds, frontier,
                                 dev, args.reps)
-    entry = {"name": "frontier_expand", "route": "cuda",
-             "source": "src/repro_torch/kernels/frontier_expand/csrc/"
-                       "frontier_expand.cu",
-             "replaces": "src/repro/kernels/frontier_expand/"
-                         "frontier_expand.py:52",
-             "launches": launches}
-    for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms"):
-        entry[key] = wide[key]
-    entry["shapes"] = [wide, narrow]
+    phase_psw(torch, core, g, dev, args, clock)
+    phase_snapshots(torch, core, t, dev, args, clock)
+    del t
+    agg_launches, ell, spmm_edges = phase_aggregate(torch, core, se, ps, g,
+                                                    dev, args, clock)
+    log(f"aggregation path: {agg_launches} launches")
+    del g
+    ell_res = segment_ell_vs_plain(torch, se, se_kernel, ell, args.reps)
+    log("  segment_ell K=15 F=100: " + json.dumps(ell_res))
+    del ell
+    spmm_res = [psw_spmm_vs_plain(torch, ps, ps_kernel, e, args.reps)
+                for e in spmm_edges]
+    for r in spmm_res:
+        log(f"  psw_spmm F={r['F']}: " + json.dumps(r))
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB, " + host_memory())
+
+    kernels = [
+        kernel_entry("frontier_expand",
+                     "src/repro_torch/kernels/frontier_expand/csrc/"
+                     "frontier_expand.cu",
+                     "src/repro/kernels/frontier_expand/frontier_expand.py:52",
+                     launches, wide, [wide, narrow]),
+        kernel_entry("segment_ell",
+                     "src/repro_torch/kernels/segment_ell/csrc/"
+                     "segment_ell.cu",
+                     "src/repro/kernels/segment_ell/segment_ell.py:49",
+                     agg_launches["segment_ell"], ell_res, [ell_res]),
+        kernel_entry("psw_spmm",
+                     "src/repro_torch/kernels/psw_spmm/csrc/psw_spmm.cu",
+                     "src/repro/kernels/psw_spmm/psw_spmm.py:49",
+                     agg_launches["psw_spmm"], spmm_res[0], spmm_res),
+    ]
     log("phase seconds: " + json.dumps(clock.seconds))
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": kernels}))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

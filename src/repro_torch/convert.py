@@ -10,24 +10,37 @@ Keys: `intervals.{n_partitions,interval_len}`;
 dst_vertices,dst_ptr}` plus optional `partitions.{i}.dead` and
 `partitions.{i}.columns.{name}`; `vertex_columns.{name}.{i}`. A plan's keys
 are the reference's field names; the port's kernel layout (`dst_ptr` and
-the heavy-destination chunks) is derived from `row_dst`."""
+the heavy-destination chunks) is derived from `row_dst`.
+
+A PSW `DeviceGraph` travels the same way (`device_graph_to_arrays` /
+`device_graph_from_arrays`): the reference's field names as keys, its jnp
+arrays as numpy; the port's destination CSR `seg_ptr` is derived from
+`dst_local` and `mask`."""
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
 
+import torch
+
 from .core.pal import EdgePartition, GraphPAL, IntervalMap
+from .core.psw import DeviceGraph, segment_ptr
 from .kernels.frontier_expand.ops import (FrontierPlan, _kernel_layout,
                                          plan_to_device)
 
-__all__ = ["pal_from_arrays", "pal_to_arrays", "plan_from_arrays",
+__all__ = ["device_graph_from_arrays", "device_graph_to_arrays",
+           "pal_from_arrays", "pal_to_arrays", "plan_from_arrays",
            "plan_to_arrays"]
 
 _PART_ARRAYS = ("src", "dst", "etype", "src_vertices", "src_ptr", "dst_perm",
                 "dst_vertices", "dst_ptr")
 _PLAN_ARRAYS = ("idx", "mask", "row_dst")
 _PLAN_INTS = ("n_src", "n_dst", "n_edges", "k_slots")
+_DG_INTS = ("n_partitions", "interval_len", "n_edges")
+_DG_ARRAYS = (("src", np.int32), ("dst_local", np.int32), ("mask", bool),
+              ("outdeg", np.int32))
+_DG_WINDOW = ("send_idx", "edge_owner", "edge_slot")
 
 
 def pal_to_arrays(g) -> Dict[str, np.ndarray]:
@@ -96,3 +109,60 @@ def plan_from_arrays(d: Dict[str, np.ndarray], device) -> FrontierPlan:
     plan = FrontierPlan(idx, mask, row_dst, n_src, n_dst, int(d["n_edges"]),
                         int(d["k_slots"]), **_kernel_layout(row_dst, n_dst))
     return plan_to_device(plan, device)
+
+
+def device_graph_to_arrays(dg) -> Dict[str, np.ndarray]:
+    """Flatten a DeviceGraph (either package's) into a dict of numpy
+    arrays; the window plan's keys are absent when it was not built."""
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    d = {name: np.asarray(getattr(dg, name)) for name in _DG_INTS}
+    for name, _ in _DG_ARRAYS:
+        d[name] = host(getattr(dg, name))
+    for name in _DG_WINDOW:
+        if getattr(dg, name) is not None:
+            d[name] = host(getattr(dg, name))
+    return d
+
+
+def device_graph_from_arrays(d: Dict[str, np.ndarray], device) -> DeviceGraph:
+    """Rebuild a port DeviceGraph on `device` from `device_graph_to_arrays`
+    output. The sweep gathers by these ids unchecked and sums each
+    partition's destinations as contiguous runs, so ids out of range, a
+    mask that is not a prefix, or destinations out of order raise."""
+    P, L = int(d["n_partitions"]), int(d["interval_len"])
+    a = {name: np.array(d[name], dt) for name, dt in _DG_ARRAYS}
+    S, D, M = a["src"], a["dst_local"], a["mask"]
+    n_valid = M.sum(1)
+    prefix = M == (np.arange(M.shape[1]) < n_valid[:, None])
+    dsorted = np.where(M, D, L)
+    if (S.shape != D.shape or S.shape != M.shape or S.shape[0] != P
+            or a["outdeg"].shape != (P, L) or not prefix.all()
+            or (S[M].size and (S[M].min() < 0 or S[M].max() >= P * L))
+            or (D[M].size and (D[M].min() < 0 or D[M].max() >= L))
+            or (np.diff(dsorted, axis=1) < 0).any()
+            or int(n_valid.sum()) != int(d["n_edges"])):
+        raise ValueError("DeviceGraph arrays are inconsistent: shapes, ids, "
+                         "padding or destination order")
+    dev = torch.device(device)
+    t = {name: torch.from_numpy(v).to(dev) for name, v in a.items()}
+    window = {}
+    if all(name in d for name in _DG_WINDOW):
+        send_idx = np.array(d["send_idx"], np.int32)
+        owner = np.array(d["edge_owner"], np.int32)
+        slot = np.array(d["edge_slot"], np.int32)
+        W = send_idx.shape[-1]
+        if (send_idx.shape[:2] != (P, P) or owner.shape != S.shape
+                or slot.shape != S.shape
+                or (send_idx.size and (send_idx.min() < 0
+                                       or send_idx.max() >= L))
+                or (owner.size and (owner.min() < 0 or owner.max() >= P))
+                or (slot.size and (slot.min() < 0 or slot.max() >= W))):
+            raise ValueError("DeviceGraph window plan is inconsistent")
+        window = {name: torch.from_numpy(v).to(dev)
+                  for name, v in (("send_idx", send_idx),
+                                  ("edge_owner", owner), ("edge_slot", slot))}
+    return DeviceGraph(n_partitions=P, interval_len=L,
+                       n_edges=int(d["n_edges"]),
+                       seg_ptr=segment_ptr(t["dst_local"], t["mask"], L),
+                       **t, **window)

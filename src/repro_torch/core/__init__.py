@@ -1,5 +1,5 @@
-"""GraphChi-DB core, ported: PAL + LSM + multi-hop queries (the PSW
-analytics, disk, service and shard tiers are not ported yet)."""
+"""GraphChi-DB core, ported: PAL + LSM + multi-hop queries + PSW analytics
+(the disk, service and shard tiers are not ported yet)."""
 from .pal import (
     EdgePartition,
     GraphPAL,
@@ -45,6 +45,16 @@ from .multihop import (
     semijoin,
     triangle_count,
     two_hop_counts,
+)
+from .psw import (
+    DeviceGraph,
+    build_device_graph,
+    edge_centric_sweep,
+    pagerank_device,
+    pagerank_host,
+    pagerank_out_of_core,
+    psw_sweep_host,
+    stream_interval_buckets,
 )
 from .query import (
     Frontier,

@@ -20,7 +20,7 @@ Immutable edge partitions are stacked in a log-structured merge tree:
     reaches a buffer ("durable buffers", paper §7.3).
 
 Host copy of the reference `repro/core/lsm.py` (numpy).
-`LSMTree.snapshot` raises: the PSW `DeviceGraph` is not ported yet.
+`LSMTree.snapshot` returns the port's torch `DeviceGraph` (core/psw.py).
 """
 from __future__ import annotations
 
@@ -1112,16 +1112,18 @@ class LSMTree:
     def all_partitions(self) -> List[EdgePartition]:
         return [p for lv in self.levels for p in lv]
 
-    def snapshot(self, with_window_plan: bool = True):
+    def snapshot(self, with_window_plan: bool = True, device=None):
         """Compile ALL levels plus the live in-memory buffers into an
-        immutable `DeviceGraph` for the PSW compute
-        path — analytics run directly against the online store without
-        flushing or otherwise mutating it. Edges are re-bucketed by
-        destination interval and canonically (dst, src)-sorted, so the
-        snapshot of an LSM store is bit-identical to the snapshot of a
-        bulk-built GraphPAL holding the same live edges. The PSW
-        `DeviceGraph` has no port yet."""
-        raise NotImplementedError("PSW DeviceGraph: port slice 2")
+        immutable `DeviceGraph` (torch tensors on `device`; None means the
+        GPU and raises without one) for the PSW compute path — analytics
+        run directly against the online store without flushing or
+        otherwise mutating it. Edges are re-bucketed by destination
+        interval and canonically (dst, src)-sorted, so the snapshot of an
+        LSM store is bit-identical to the snapshot of a bulk-built GraphPAL
+        holding the same live edges."""
+        from .psw import build_device_graph
+        return build_device_graph(self, with_window_plan=with_window_plan,
+                                  device=device)
 
     def to_coo(self):
         ss, dd = [], []

@@ -36,7 +36,7 @@ are non-transactional, so a pinned view may observe a newer column value
 (never a torn structure).
 
 Host copy of the reference `repro/core/manifest.py` (numpy).
-`ManifestView.snapshot` raises: the PSW `DeviceGraph` is not ported yet.
+`ManifestView.snapshot` returns the port's torch `DeviceGraph` (core/psw.py).
 """
 from __future__ import annotations
 
@@ -436,6 +436,7 @@ class ManifestView:
         return (np.asarray(iv.to_original(s)), np.asarray(iv.to_original(d)))
 
     def snapshot(self, **kw):
-        """Compile the pinned state into a DeviceGraph (PSW analytics).
-        The PSW `DeviceGraph` has no port yet."""
-        raise NotImplementedError("PSW DeviceGraph: port slice 2")
+        """Compile the pinned state into a DeviceGraph (PSW analytics);
+        takes `build_device_graph`'s `with_window_plan` and `device`."""
+        from .psw import build_device_graph
+        return build_device_graph(self, **kw)

@@ -237,20 +237,27 @@ def _edge_keys_internal(eng: StorageEngine) -> np.ndarray:
     return _memoized(eng, _EDGE_KEYS, build)
 
 
-def _resolve_device(device) -> torch.device:
-    """`None` means the GPU: the dense path never drops to the CPU unless
+def _resolve_device(device, what: str = "the dense frontier path"
+                    ) -> torch.device:
+    """`None` means the GPU: the device paths never drop to the CPU unless
     the caller asks for it."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "the dense frontier path runs on a CUDA device and none is "
-                "present; pass device='cpu' for the plain torch version")
+                f"{what} runs on a CUDA device and none is present; pass "
+                "device='cpu' for the plain torch version")
         return torch.device("cuda")
     return torch.device(device)
 
 
 def _device_key(device) -> str:
-    return "cuda" if device is None else str(torch.device(device))
+    """One key per physical device: `None`, "cuda" and "cuda:<current>"
+    name the same plan, so a plan built under one spelling is found (and
+    never built twice) under another."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
 
 
 def dense_plan(g: GraphLike, direction: str = "out", device=None):

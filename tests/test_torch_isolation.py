@@ -22,7 +22,12 @@ SRC = os.path.join(ROOT, "src")
 def test_every_module_imports_without_jax_or_repro():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
-    assert "repro_torch.kernels.frontier_expand.kernel" in mods
+    for name in ("kernels.frontier_expand.kernel", "kernels.common",
+                 "kernels.segment_ell.kernel", "kernels.segment_ell.ops",
+                 "kernels.segment_ell.ref", "kernels.psw_spmm.kernel",
+                 "kernels.psw_spmm.ops", "kernels.psw_spmm.ref",
+                 "graph.padding", "core.psw", "convert"):
+        assert "repro_torch." + name in mods, name
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

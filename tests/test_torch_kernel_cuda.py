@@ -1,19 +1,29 @@
-"""The frontier_expand CUDA kernel against its plain torch version on the
-card (marked `cuda`; skipped where torch sees no GPU). Imports neither jax
-nor the reference package, so it runs where only the port is installed:
+"""The CUDA kernels against their plain torch versions on the card (marked
+`cuda`; skipped where torch sees no GPU). Imports neither jax nor the
+reference package, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernel_cuda.py
 
-Exact tolerance: the panels hold small integers, so every float32 sum is
-exact whatever the order."""
+Tolerances: frontier_expand is exact (the panels hold small integers, so
+every float32 sum is exact whatever the order); segment_ell is bitwise (the
+kernel and the plain version add the same values in the same slot order);
+psw_spmm is rtol 1e-5, atol 1e-5 against the plain version (TestPswSpmm's
+tolerance: cuBLAS and index_add_ sum in another order) and 1e-4 against the
+edge oracle; the PSW sweep's segment-sum is bitwise equal across runs and
+within 1e-6 of a float64 sum."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import psw
+from repro_torch.graph import pad_to_ell
+from repro_torch.kernels import psw_spmm as ps
+from repro_torch.kernels import segment_ell as se
 from repro_torch.kernels.frontier_expand import (build_frontier_plan,
                                                  frontier_expand_counts,
                                                  frontier_expand_torch,
                                                  ops, plan_to_device)
+from repro_torch.kernels.psw_spmm import kernel as ps_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -63,3 +73,109 @@ def test_empty_plan_and_bad_inputs(cuda):
         frontier_expand_counts(plan, torch.ones((10, 3)))        # on the CPU
     with pytest.raises(ValueError):
         frontier_expand_counts(plan, torch.ones((10, 6), device=cuda)[:, ::2])
+
+
+@pytest.mark.parametrize("f", [1, 100, 128, 1433])
+@pytest.mark.parametrize("k", [1, 15, 32])
+def test_segment_ell_bitwise_equals_plain(cuda, k, f):
+    """From edges with a hub destination (far more in-edges than K, so its
+    row is full and the rest dropped), random values."""
+    rng = np.random.default_rng(k * 1000 + f)
+    n, e = 3000, 30000
+    src = np.concatenate([rng.integers(0, n, e), rng.integers(0, n, 5000)])
+    dst = np.concatenate([rng.integers(0, n, e), np.full(5000, 7)])
+    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32))
+    before = se.ops.launches
+    got = se.segment_ell_from_edges(src, dst, x.to(cuda), n, k)
+    torch.cuda.synchronize()
+    assert se.ops.launches == before + 1
+    cpu = se.segment_ell_from_edges(src, dst, x, n, k)
+    assert torch.equal(got.cpu(), cpu)
+    idx, mask = (torch.from_numpy(a).to(cuda)
+                 for a in pad_to_ell(src, dst, n, k))
+    assert bool(mask[7].all())
+    assert torch.equal(got, se.segment_ell_torch(idx, mask, x.to(cuda)))
+
+
+def test_segment_ell_never_reads_masked_slots(cuda):
+    idx = torch.tensor([[1, -7, 2**30], [2**30, 2, -1]], dtype=torch.int32)
+    mask = torch.tensor([[True, False, False], [False, True, False]])
+    x = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    out = se.segment_ell(idx.to(cuda), mask.to(cuda), x.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), x[[1, 2]])
+    empty = se.segment_ell(idx[:0].to(cuda), mask[:0].to(cuda), x.to(cuda))
+    assert tuple(empty.shape) == (0, 3)
+
+
+@pytest.mark.parametrize("f", [1, 100, 128, 1433])
+@pytest.mark.parametrize("hub", [False, True])
+def test_psw_spmm_matches_plain_and_edges(cuda, f, hub):
+    """hub=True puts every edge into the first 100 destinations: one dst
+    block holds all the tiles and the other blocks are empty."""
+    rng = np.random.default_rng(f + hub)
+    n, e = 1000, 12000
+    src = rng.integers(0, n, e)
+    dst = rng.integers(0, 100 if hub else n, e)
+    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32))
+    before = ps.ops.launches
+    got = ps.psw_spmm_edges(src, dst, x.to(cuda), n)
+    torch.cuda.synchronize()
+    assert ps.ops.launches == before + 1
+    assert torch.equal(got, ps.psw_spmm_edges(src, dst, x.to(cuda), n))
+    coords, tiles, nb = ps.prepare_blocks(src, dst, n, 128)
+    xp = torch.nn.functional.pad(x, (0, 0, 0, nb * 128 - n)).to(cuda)
+    plain = ps.psw_spmm_torch(torch.from_numpy(coords).to(cuda),
+                              torch.from_numpy(tiles).to(cuda), xp, nb, 128)
+    torch.testing.assert_close(got, plain[:n], rtol=1e-5, atol=1e-5)
+    edge = ps.spmm_dense_torch(torch.from_numpy(src).to(cuda),
+                               torch.from_numpy(dst).to(cuda), x.to(cuda), n)
+    torch.testing.assert_close(got, edge, rtol=1e-4, atol=1e-4)
+    if hub:
+        assert not got[128:].any()
+
+
+@pytest.mark.parametrize("P,E,hub", [(1, 1 << 24, 1 << 24),
+                                     (1, 100_000, 70_000),
+                                     (16, 1 << 20, 600_000)])
+def test_segment_sum_sorted_is_deterministic(cuda, P, E, hub):
+    """The PSW sweep's float64 scan gives the same bits on every run, for a
+    single partition (one scan row per block total) and for a hub segment
+    of up to 2**24 edges, and sums to float64 accuracy."""
+    L = 64
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(P + E)
+    msgs = torch.rand((P, E, 1), generator=gen, device=cuda)
+    # destination 5 of every partition takes `hub` edges, the rest spread
+    # over the other destinations in order
+    dst = torch.cat([torch.full((hub,), 5, device=cuda),
+                     torch.randint(0, L, (E - hub,), generator=gen,
+                                   device=cuda)]).sort().values
+    mask = torch.ones((P, E), dtype=torch.bool, device=cuda)
+    seg_ptr = psw.segment_ptr(dst.expand(P, E).to(torch.int32), mask, L)
+    first = psw.segment_sum_sorted(msgs, seg_ptr)
+    for _ in range(3):
+        assert torch.equal(psw.segment_sum_sorted(msgs, seg_ptr), first)
+    want = torch.zeros((P, L, 1), dtype=torch.float64, device=cuda)
+    want.index_add_(1, dst, msgs.double())
+    torch.testing.assert_close(first, want.float(), rtol=1e-6, atol=1e-6)
+
+
+def test_psw_spmm_empty_blocks_without_filler_tiles(cuda):
+    """The kernel writes zeros for a dst block with no tiles at all, and
+    asks for more than the 48 KiB of shared memory a launch gets unasked."""
+    assert ps_kernel.smem_bytes() > 48 * 1024
+    rng = np.random.default_rng(3)
+    coords = torch.tensor([[1, 0], [1, 2], [3, 1]], dtype=torch.int32)
+    tiles = torch.from_numpy(
+        (rng.random((3, 128, 128)) < 0.01).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(3 * 128, 70)).astype(np.float32))
+    got = ps.psw_spmm(coords.to(cuda), tiles.to(cuda), x.to(cuda), 5, 128)
+    torch.cuda.synchronize()
+    want = ps.psw_spmm_torch(coords, tiles, x, 5, 128)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    for b in (0, 2, 4):
+        assert not got[b * 128:(b + 1) * 128].any()
+    with pytest.raises(ValueError):      # not sorted by dst block
+        ps.psw_spmm(coords.flip(0).to(cuda), tiles.to(cuda), x.to(cuda), 5,
+                    128)

@@ -7,6 +7,7 @@ vertex ids and integer counts, so every comparison is exact; the port's
 dense path runs on the CPU (its plain torch version)."""
 import numpy as np
 import pytest
+import torch
 
 import repro.core as R
 import repro_torch.core as T
@@ -132,8 +133,43 @@ def test_dense_plans_are_memoized_per_device():
 
 
 def test_snapshot_paths_wait_for_the_psw_slice():
+    """The PSW slice has landed: both snapshot paths compile the live state
+    into the port's DeviceGraph (held against the reference in
+    tests/test_torch_psw.py), and device=None still means the GPU."""
     port = live(T, 5)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        port.snapshot()
-    with port.read_view() as view, pytest.raises(NotImplementedError):
-        view.snapshot()
+    dg = port.snapshot(device="cpu")
+    assert isinstance(dg, T.DeviceGraph) and dg.n_edges == port.n_edges
+    with port.read_view() as view:
+        vdg = view.snapshot(device="cpu", with_window_plan=False)
+        assert vdg.n_edges == dg.n_edges and vdg.send_idx is None
+        assert torch.equal(vdg.src, dg.src)
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                view.snapshot()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            port.snapshot()
+
+
+@pytest.mark.parametrize("current", [0, 1])
+def test_plan_cache_key_names_one_device_once(monkeypatch, current):
+    """None, "cuda" and "cuda:<current device>" are one plan key, so a plan
+    built under one spelling is found under another and never built twice;
+    another index is another key. Checked without a card: torch.cuda's
+    availability and current device are stubbed."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    here = f"cuda:{current}"
+    assert (tmh._device_key(None) == tmh._device_key("cuda")
+            == tmh._device_key(torch.device("cuda"))
+            == tmh._device_key(here) == here)
+    assert tmh._device_key(f"cuda:{1 - current}") == f"cuda:{1 - current}"
+    assert tmh._device_key("cpu") == "cpu"
+    # a plan memoized under "cuda:<current>" is seen by the auto heuristic
+    # asking with device=None (as bfs does)
+    g = bulk(T, 6)
+    eng = T.as_engine(g)
+    eng.plan_cache()[((tmh._PLAN_KEY, "out", here), eng.cache_token())] = 0
+    assert tmh._plan_cached(eng, "out", None)
+    assert tmh._plan_cached(eng, "out", "cuda")
+    assert not tmh._plan_cached(eng, "out", f"cuda:{1 - current}")
