@@ -39,11 +39,27 @@ graph store read by multi-hop queries and analysed by PSW:
      458,752 power-law edges, part still buffered; F = 128) and a
      Cora-shaped graph (2,708 vertices, 10,556 edges, F = 1,433), each
      against the edge oracle; then each kernel against its plain version,
-     with times, bound and library yardstick.
+     with times, bound and library yardstick;
+  7. LM serving at granite-3-2b's full config (40 layers, d 2,048, 32 heads,
+     8 kv heads, vocab 49,155; random fp32 weights made on the device from
+     --seed, bf16 compute): `serve_requests` with 8 prompts of 4,096 tokens
+     in batches of 4, 32 generated tokens each, every prefill layer through
+     the flash_attention kernel; then the kernel against its plain version
+     on layer 0's q/k/v at the serve shape (bf16 within 2e-2, fp32 within
+     2e-5), with the SDPA yardstick there and at 32,768 tokens; a 2-layer
+     fp32 cut at full width (prefill through the kernel against the plain
+     attention, decode against forward, within 1e-4); the share of greedy
+     tokens the plain path agrees with;
+  8. pooled lookups at bert4rec's serving shape (a 1,000,192 x 64 fp32 item
+     table, 16,384 and 512 histories of 200 slots, left-padded): the
+     embedding_bag kernel in sum and mean, bitwise against its plain
+     version and within 1e-5 of float64 numpy, with the F.embedding_bag
+     yardstick.
 
 Each kernel's launch count is zeroed just before the path that runs it
-(phases 1-2 for frontier_expand, phase 6's aggregation calls for the other
-two) and read just after. Any failed check exits non-zero. The
+(phases 1-2 for frontier_expand, phase 6's aggregation calls for
+segment_ell and psw_spmm, phase 7's `serve_requests` for flash_attention,
+phase 8's lookups for embedding_bag) and read just after. Any failed check exits non-zero. The
 second-to-last line is the card's name and power limit from nvidia-smi;
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -628,6 +644,325 @@ def psw_spmm_vs_plain(torch, ps, ps_kernel, edges, reps: int) -> dict:
             "dense_tile_tflops_per_s": dense_flops / (ms * 1e-3) / 1e12}
 
 
+BF16_OPS_PER_S = 989e12    # H100 SXM, dense bf16 on the tensor cores
+
+
+def leaves(tree):
+    for v in tree.values():
+        yield from leaves(v) if isinstance(v, dict) else (v,)
+
+
+def first_layers(tree, n: int):
+    return {k: first_layers(v, n) if isinstance(v, dict) else v[:n]
+            for k, v in tree.items()}
+
+
+def bound(bytes_once: float, ops: float, ops_per_s: float) -> dict:
+    b, o = bytes_once / HBM_BYTES_PER_S, ops / ops_per_s
+    return {"bound_ms": max(b, o) * 1e3,
+            "bound_by": "bytes" if b >= o else "operations",
+            "bytes_once": bytes_once, "ops": ops}
+
+
+def attention_inputs(torch, tf, params, cfg, tokens):
+    """Layer 0's q, k, v for `tokens`, as the prefill computes them."""
+    x = params["embed"][tokens].to(cfg.compute_dtype)
+    positions = torch.arange(tokens.shape[1], device=x.device).expand(
+        tokens.shape)
+    h = tf.rms_norm(x, params["layers"]["ln1"][0].to(cfg.compute_dtype),
+                    cfg.norm_eps)
+    attn = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    return tf.qkv(attn, h, cfg, positions)
+
+
+def attention_vs_plain(torch, fa, fa_kernel, q, k, v, tol: float,
+                       reps: int, plain: bool = True) -> dict:
+    """The kernel (causal) against its plain version on one layer's inputs,
+    with times, the bound and the SDPA yardstick."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    fa_kernel.launch(q, k, v, out, True)
+    res = {"B": B, "S": S, "T": T, "H": H, "Hkv": Hkv, "D": D,
+           "dtype": str(q.dtype).replace("torch.", "")}
+    if plain:
+        want = fa.flash_attention_torch(q, k, v, True)
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
+              f"flash_attention kernel vs plain {res}: max abs err {err}")
+        res["max_abs_err"], res["tolerance"] = err, tol
+        del want
+        res["plain_ms"] = cuda_ms(torch, lambda: fa.flash_attention_torch(
+            q, k, v, True), max(1, reps // 4))
+    res["ms"] = cuda_ms(torch, lambda: fa_kernel.launch(q, k, v, out, True),
+                        reps)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+    torch.cuda.synchronize()
+    lib_err = float((lib.float() - out.float()).abs().max())
+    check(torch.allclose(lib.float(), out.float(), rtol=2e-2, atol=2e-2),
+          f"SDPA vs flash_attention kernel {res}: max abs err {lib_err}")
+    del lib
+    res["library_ms"] = cuda_ms(torch, lambda: sdpa(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps)
+    res["library_max_abs_err"] = lib_err
+    pairs = sum(min(s + 1, T) for s in range(S))   # visible (query, key)
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    res.update(bound(q.element_size() * (2 * B * S * H * D
+                                         + 2 * B * T * Hkv * D),
+                     4 * B * H * D * pairs, peak))
+    res["tflops_per_s"] = res["ops"] / (res["ms"] * 1e-3) / 1e12
+    return res
+
+
+def decode_ops(torch, tf, params, cfg, batch: int, dev) -> int:
+    """The aten ops one decode step dispatches (TorchDispatchMode): each is
+    a host-side call, most of them a kernel launch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    toks = torch.ones((batch, 16), dtype=torch.long, device=dev)
+    with torch.no_grad():
+        logits, cache = tf.prefill(params, toks, cfg, 17)
+        with Count():
+            tf.decode_step(params, cache, logits.argmax(-1)[:, None], 16, cfg)
+    return Count.n
+
+
+class plain_attention:
+    """Prefill attention through the kernel's plain version: the model's
+    module-level name swapped for the duration (the check's reference)."""
+
+    def __init__(self, tf, fa):
+        self.tf, self.fa = tf, fa
+
+    def __enter__(self):
+        self.real = self.tf.flash_attention
+        self.tf.flash_attention = (
+            lambda q, k, v, causal=True:
+            self.fa.flash_attention_torch(q, k, v, causal))
+
+    def __exit__(self, *exc):
+        self.tf.flash_attention = self.real
+
+
+def phase_serve(torch, dev, cfg, args, clock, fa_kernel):
+    """LM serving at `cfg` through `serve_requests`, then the checks:
+    (i) the kernel against its plain version on layer 0's q/k/v at the
+    serve shape, bf16 and fp32, with the SDPA yardstick (and at 32k tokens);
+    (ii) a 2-layer fp32 cut of the model, prefill through the kernel against
+    prefill through the plain version, decode against forward;
+    (iii) the share of greedy tokens the plain path agrees with."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import transformer as tf
+    log(f"phase 7 LM serving: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads, kv {cfg.n_kv_heads}, d_head {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} -> {cfg.padded_vocab}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 20)
+    params = clock("init_params (fp32, on the device)", tf.init_params, cfg,
+                   gen, dev)
+    n = sum(t.numel() for t in leaves(params))
+    check(n == cfg.n_params, f"{n} params, config says {cfg.n_params}")
+    R, P, G = args.lm_requests, args.prompt_len, args.gen
+    prompts = np.random.default_rng(args.seed + 21).integers(
+        1, cfg.vocab_size, (R, P))
+    torch.cuda.reset_peak_memory_stats()
+    fa.ops.launches = 0                        # the serving path...
+    tokens, stats = clock(f"serve_requests ({R} requests of {P} tokens, "
+                          f"batch {args.lm_batch}, {G} generated)",
+                          serve_requests, params, cfg, prompts,
+                          args.lm_batch, G, dev)
+    launches = fa.ops.launches                 # ...ends here
+    check(launches == cfg.n_layers * len(stats),
+          f"{launches} flash_attention launches for {len(stats)} prefills "
+          f"of {cfg.n_layers} layers")
+    check(tokens.shape == (R, G) and tokens.min() >= 0
+          and tokens.max() < cfg.padded_vocab, "serve_requests: bad tokens")
+    cache_gib = (2 * cfg.n_layers * args.lm_batch * (P + G) * cfg.n_kv_heads
+                 * cfg.head_dim * 2 / 2**30)
+    batches = [{**s, "decode_ms_per_token": s["decode_s"] / max(G - 1, 1)
+                * 1e3, "tokens_per_s": s["requests"] * G / s["latency_s"]}
+               for s in stats]
+    for s in batches:
+        log(f"  batch of {s['requests']}: prefill {s['prefill_s']:.3f} s, "
+            f"decode {s['decode_ms_per_token']:.2f} ms/token, "
+            f"{s['tokens_per_s']:.1f} tokens/s, latency "
+            f"{s['latency_s']:.3f} s")
+    log(f"  {n} params ({n * 4 / 1e9:.2f} GB fp32, bf16 serving copy), "
+        f"KV cache {cache_gib:.3f} GiB per batch, {launches} flash_attention "
+        f"launches ({cfg.n_layers} per prefill), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # (i) the kernel on layer 0's q/k/v at the serve shape
+    served = tf.cast_params(params, cfg)
+    toks = torch.from_numpy(prompts[:args.lm_batch]).to(dev)
+    q, k, v = attention_inputs(torch, tf, served, cfg, toks)
+    serve_bf16 = attention_vs_plain(torch, fa, fa_kernel, q, k, v, 2e-2,
+                                    args.reps)
+    log("  kernel vs plain, serve shape: " + json.dumps(serve_bf16))
+    q, k, v = (t.float() for t in (q, k, v))
+    serve_fp32 = attention_vs_plain(torch, fa, fa_kernel, q, k, v, 2e-5,
+                                    max(2, args.reps // 4))
+    log("  kernel vs plain, serve shape fp32: " + json.dumps(serve_fp32))
+    del q, k, v
+    toks = torch.from_numpy(np.random.default_rng(args.seed + 22).integers(
+        1, cfg.vocab_size, (1, args.long_prompt))).to(dev)
+    q, k, v = attention_inputs(torch, tf, served, cfg, toks)
+    long_bf16 = attention_vs_plain(torch, fa, fa_kernel, q, k, v, 2e-2,
+                                   max(2, args.reps // 4), plain=False)
+    log(f"  kernel vs SDPA, {args.long_prompt} tokens: "
+        + json.dumps(long_bf16))
+    del q, k, v
+    n_ops = decode_ops(torch, tf, served, cfg, args.lm_batch, dev)
+    del served
+    log(f"  one decode step dispatches {n_ops} aten ops "
+        f"({n_ops / cfg.n_layers:.1f} per layer)")
+
+    # (ii) two layers at the full width, fp32: kernel against plain prefill,
+    # decode against forward
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype=torch.float32)
+    p2 = {**params, "layers": first_layers(params["layers"], 2)}
+    S2, steps = 256, 8
+    toks = torch.from_numpy(np.random.default_rng(args.seed + 23).integers(
+        1, cfg.vocab_size, (2, S2 + steps))).to(dev)
+    with torch.no_grad():
+        full, _ = tf.forward(p2, toks, cfg2)
+        lk, cache = tf.prefill(p2, toks[:, :S2], cfg2, S2 + steps,
+                               cache_dtype=torch.float32)
+        with plain_attention(tf, fa):
+            lp, _ = tf.prefill(p2, toks[:, :S2], cfg2, S2 + steps,
+                               cache_dtype=torch.float32)
+        errs = {"prefill_kernel_vs_plain": float((lk - lp).abs().max()),
+                "prefill_vs_forward": float((lk - full[:, S2 - 1]).abs().max())}
+        check(torch.allclose(lk, lp, rtol=1e-4, atol=1e-4)
+              and torch.allclose(lk, full[:, S2 - 1], rtol=1e-4, atol=1e-4),
+              f"2-layer fp32 prefill logits: {errs}")
+        dec = 0.0
+        for i in range(S2, S2 + steps):
+            lg, cache = tf.decode_step(p2, cache, toks[:, i:i + 1], i, cfg2)
+            check(torch.allclose(lg, full[:, i], rtol=1e-4, atol=1e-4),
+                  f"decode logits at {i} vs forward: max abs err "
+                  f"{float((lg - full[:, i]).abs().max())}")
+            dec = max(dec, float((lg - full[:, i]).abs().max()))
+        errs["decode_vs_forward"] = dec
+    log("  2-layer fp32 logits (limit 1e-4): " + json.dumps(errs))
+    del p2, full, cache
+
+    # (iii) greedy tokens of the first batch through the plain attention
+    with plain_attention(tf, fa):
+        plain_tokens, _ = serve_requests(params, cfg,
+                                         prompts[:args.lm_batch],
+                                         args.lm_batch, G, dev)
+    agree = float((plain_tokens == tokens[:args.lm_batch]).mean())
+    log(f"  greedy tokens of batch 1 equal on the kernel and plain paths: "
+        f"{agree:.4f} (not a gate)")
+    del params
+    return launches, serve_bf16, [serve_bf16, serve_fp32, long_bf16], {
+        "batches": batches, "kv_cache_gib": cache_gib, "logit_errs": errs,
+        "greedy_agreement": agree, "decode_aten_ops": n_ops}
+
+
+def history_bags(n_bags: int, k_slots: int, n_items: int, seed: int):
+    """bert4rec serving histories: item ids half zipf(1.8)-hot, half uniform
+    over 1..n_items (power_law_graph's destination skew), lengths uniform
+    in 1..k_slots, left-padded with item 0 and weight 0."""
+    rng = np.random.default_rng(seed)
+    _, items = power_law_graph(n_items, n_bags * k_slots, seed=seed)
+    lens = rng.integers(1, k_slots + 1, n_bags)
+    real = np.arange(k_slots)[None, :] >= (k_slots - lens)[:, None]
+    idx = np.where(real, items.reshape(n_bags, k_slots) + 1, 0)
+    return idx.astype(np.int32), real.astype(np.float32)
+
+
+def bag_oracle(idx, w, table, mode: str) -> np.ndarray:
+    """float64 numpy bag sums (or means), 1,024 bags at a time."""
+    out = np.empty((idx.shape[0], table.shape[1]))
+    for i in range(0, idx.shape[0], 1024):
+        ii, ww = idx[i:i + 1024], w[i:i + 1024].astype(np.float64)
+        out[i:i + 1024] = np.einsum("bk,bkd->bd", ww, table[ii])
+    if mode == "mean":
+        out /= np.maximum(w.sum(1, dtype=np.float64), 1e-9)[:, None]
+    return out
+
+
+def phase_bags(torch, dev, args, clock, eb_kernel):
+    """Pooled lookups at bert4rec's serving shape through `embedding_bag`,
+    then each result against its plain version (bitwise) and float64
+    numpy, with times, bound and the F.embedding_bag yardstick."""
+    from repro_torch.kernels import embedding_bag as eb
+    V, D, K = 1_000_192, 64, 200               # bert4rec padded_vocab, d, seq
+    log(f"phase 8 pooled lookups: table {V} x {D} fp32, histories of {K}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 30)
+    table = torch.randn((V, D), generator=gen, device=dev).mul_(0.02)
+    idx_np, w_np = clock(f"history_bags ({args.bags} x {K})", history_bags,
+                         args.bags, K, 1_000_000, args.seed + 31)
+    idx, w = torch.from_numpy(idx_np).to(dev), torch.from_numpy(w_np).to(dev)
+    runs = [(B, mode) for B in (args.bags, 512) for mode in ("sum", "mean")]
+    eb.ops.launches = 0                        # the lookup path...
+    outs = {r: eb.embedding_bag(idx[:r[0]], w[:r[0]], table, mode=r[1])
+            for r in runs}
+    torch.cuda.synchronize()
+    launches = eb.ops.launches                 # ...ends here
+    check(launches == len(runs), f"{launches} embedding_bag launches for "
+                                 f"{len(runs)} calls")
+    table_np = table.cpu().numpy()
+    results = []
+    for (B, mode), got in outs.items():
+        i, ww = idx[:B], w[:B]
+        plain_sum = eb.embedding_bag_torch(i, ww, table)
+        want = plain_sum if mode == "sum" else plain_sum / torch.clamp_min(
+            ww.sum(1, keepdim=True), 1e-9)
+        check(torch.equal(got, want),
+              f"embedding_bag B={B} {mode}: kernel != plain version")
+        ref = bag_oracle(idx_np[:B], w_np[:B], table_np, mode)
+        err = float(np.abs(got.cpu().numpy() - ref).max())
+        check(err <= 1e-5, f"embedding_bag B={B} {mode} vs float64: {err}")
+        out = torch.empty((B, D), device=dev)
+        res = {"B": B, "K": K, "D": D, "mode": mode,
+               "max_abs_err": float((got - want).abs().max()),
+               "max_abs_err_vs_float64": err,
+               "ms": cuda_ms(torch, lambda: eb_kernel.launch(i, ww, table,
+                                                             out),
+                             args.reps),
+               "plain_ms": cuda_ms(torch, lambda: eb.embedding_bag_torch(
+                   i, ww, table), max(1, args.reps // 4))}
+        # yardstick: F.embedding_bag's weighted sum (no weighted mean there)
+        ii = i.long()
+        lib = torch.nn.functional.embedding_bag(ii, table,
+                                                per_sample_weights=ww,
+                                                mode="sum")
+        res["library_max_abs_err"] = float((lib - plain_sum).abs().max())
+        res["library_ms"] = cuda_ms(torch, lambda: torch.nn.functional
+                                    .embedding_bag(ii, table,
+                                                   per_sample_weights=ww,
+                                                   mode="sum"), args.reps)
+        distinct = int(torch.unique(i).numel())
+        res.update(bound(distinct * D * 4 + B * K * 8 + B * D * 4,
+                         2 * B * K * D, FP32_OPS_PER_S))
+        res["distinct_rows"] = distinct
+        res["gather_bound_ms"] = (B * K * D * 4 + B * K * 8 + B * D * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        results.append(res)
+        log(f"  B={B} {mode}: " + json.dumps(res))
+        del ii, lib, want, plain_sum
+    log(f"  {launches} embedding_bag launches; every result bitwise equal to "
+        "the plain version and within 1e-5 of float64 numpy")
+    del table, outs
+    return launches, results
+
+
 def build_kernels(common, kernels) -> None:
     """Build every kernel's library at once (one nvcc each, all started
     together), load them, then print ptxas's register and spill report."""
@@ -671,6 +1006,12 @@ def main() -> None:
     ap.add_argument("--edges", type=int, default=56_000_000)
     ap.add_argument("--live-edges", type=int, default=2_000_000)
     ap.add_argument("--bfs-depth", type=int, default=8)
+    ap.add_argument("--lm-requests", type=int, default=8)
+    ap.add_argument("--lm-batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=4096)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--long-prompt", type=int, default=32768)
+    ap.add_argument("--bags", type=int, default=16384)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -682,11 +1023,14 @@ def main() -> None:
         fail(f"{SRC}/repro_torch is missing: run from a checkout of the repo")
     sys.path.insert(0, SRC)
     import repro_torch.core as core
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import common
     from repro_torch.kernels import frontier_expand as fe
     from repro_torch.kernels import psw_spmm as ps
     from repro_torch.kernels import segment_ell as se
     from repro_torch.kernels.frontier_expand import kernel, ops as fe_ops
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.psw_spmm import kernel as ps_kernel
     from repro_torch.kernels.segment_ell import kernel as se_kernel
 
@@ -695,7 +1039,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    build_kernels(common, [kernel, se_kernel, ps_kernel])
+    build_kernels(common, [kernel, se_kernel, ps_kernel, fa_kernel,
+                           eb_kernel])
     log(f"  psw_spmm dynamic shared memory: {ps_kernel.smem_bytes()} bytes")
 
     clock = Clock(torch)
@@ -729,6 +1074,15 @@ def main() -> None:
         log(f"  psw_spmm F={r['F']}: " + json.dumps(r))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB, " + host_memory())
+    del spmm_edges
+    torch.cuda.empty_cache()
+
+    fa_launches, fa_main, fa_shapes, serving = phase_serve(
+        torch, dev, get_arch("granite-3-2b").config, args, clock, fa_kernel)
+    log("serving: " + json.dumps(serving))
+    eb_launches, eb_res = phase_bags(torch, dev, args, clock, eb_kernel)
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB (since phase 7), " + host_memory())
 
     kernels = [
         kernel_entry("frontier_expand",
@@ -745,6 +1099,16 @@ def main() -> None:
                      "src/repro_torch/kernels/psw_spmm/csrc/psw_spmm.cu",
                      "src/repro/kernels/psw_spmm/psw_spmm.py:49",
                      agg_launches["psw_spmm"], spmm_res[0], spmm_res),
+        kernel_entry("embedding_bag",
+                     "src/repro_torch/kernels/embedding_bag/csrc/"
+                     "embedding_bag.cu",
+                     "src/repro/kernels/embedding_bag/embedding_bag.py:48",
+                     eb_launches, eb_res[0], eb_res),
+        kernel_entry("flash_attention",
+                     "src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_attention.cu",
+                     "src/repro/kernels/flash_attention/flash_attention.py:69",
+                     fa_launches, fa_main, fa_shapes),
     ]
     log("phase seconds: " + json.dumps(clock.seconds))
     log(json.dumps({"kernels": kernels}))

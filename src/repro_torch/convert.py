@@ -15,7 +15,14 @@ the heavy-destination chunks) is derived from `row_dst`.
 A PSW `DeviceGraph` travels the same way (`device_graph_to_arrays` /
 `device_graph_from_arrays`): the reference's field names as keys, its jnp
 arrays as numpy; the port's destination CSR `seg_ptr` is derived from
-`dst_local` and `mask`."""
+`dst_local` and `mask`.
+
+A transformer's params (`transformer_params_to_arrays` /
+`transformer_params_from_arrays`) travel as dotted keys of the reference's
+pytree: `embed`, `layers.attn.wq`, ..., `layers.mlp.w_down`, `layers.ln1`,
+`final_norm`, `lm_head`, each layer leaf with its leading `n_layers` axis.
+A KV cache travels the same way (`k`, `v`; `kv_cache_from_arrays`).
+bfloat16 leaves cross as float32, which holds them exactly."""
 from __future__ import annotations
 
 from typing import Dict
@@ -28,10 +35,12 @@ from .core.pal import EdgePartition, GraphPAL, IntervalMap
 from .core.psw import DeviceGraph, segment_ptr
 from .kernels.frontier_expand.ops import (FrontierPlan, _kernel_layout,
                                          plan_to_device)
+from .models.transformer import MOE_TODO, TransformerConfig, _layer_shapes
 
 __all__ = ["device_graph_from_arrays", "device_graph_to_arrays",
-           "pal_from_arrays", "pal_to_arrays", "plan_from_arrays",
-           "plan_to_arrays"]
+           "kv_cache_from_arrays", "kv_cache_to_arrays", "pal_from_arrays",
+           "pal_to_arrays", "plan_from_arrays", "plan_to_arrays",
+           "transformer_params_from_arrays", "transformer_params_to_arrays"]
 
 _PART_ARRAYS = ("src", "dst", "etype", "src_vertices", "src_ptr", "dst_perm",
                 "dst_vertices", "dst_ptr")
@@ -166,3 +175,80 @@ def device_graph_from_arrays(d: Dict[str, np.ndarray], device) -> DeviceGraph:
                        n_edges=int(d["n_edges"]),
                        seg_ptr=segment_ptr(t["dst_local"], t["mask"], L),
                        **t, **window)
+
+
+def _host_array(a) -> np.ndarray:
+    """A leaf as numpy: a torch tensor, a jax or numpy array. bfloat16
+    (torch's, or the ml_dtypes one jax hands numpy) widens to float32."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def _flatten(tree, prefix: str = ""):
+    """(dotted key, leaf) pairs of nested dicts."""
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + name + ".")
+        else:
+            yield prefix + name, v
+
+
+def transformer_params_to_arrays(tree) -> Dict[str, np.ndarray]:
+    """Flatten a transformer params tree (either package's nested dicts)
+    into dotted keys of numpy arrays."""
+    return {k: _host_array(v) for k, v in _flatten(tree)}
+
+
+def _param_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
+    V, d = cfg.padded_vocab, cfg.d_model
+    shapes = {"embed": (V, d), "final_norm": (d,), "lm_head": (V, d)}
+    shapes.update((k, (cfg.n_layers, *shp))
+                  for k, shp in _flatten(_layer_shapes(cfg), "layers."))
+    return shapes
+
+
+def _tree_from_arrays(d, shapes, dtype, device):
+    if set(d) != set(shapes):
+        raise ValueError(f"keys differ from the config's: missing "
+                         f"{sorted(set(shapes) - set(d))}, extra "
+                         f"{sorted(set(d) - set(shapes))}")
+    dev = torch.device(device)
+    tree: Dict = {}
+    for key, shp in shapes.items():
+        a = _host_array(d[key])
+        if a.shape != shp:
+            raise ValueError(f"{key} has shape {a.shape}, expected {shp}")
+        *path, leaf = key.split(".")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = torch.from_numpy(np.array(a)).to(
+            device=dev, dtype=dtype)
+    return tree
+
+
+def transformer_params_from_arrays(d: Dict[str, np.ndarray],
+                                   cfg: TransformerConfig, device):
+    """Rebuild a port params tree in `cfg.param_dtype` on `device` from
+    `transformer_params_to_arrays` output; keys and shapes must be the
+    config's."""
+    if cfg.moe is not None:
+        raise NotImplementedError(MOE_TODO)
+    return _tree_from_arrays(d, _param_shapes(cfg), cfg.param_dtype, device)
+
+
+kv_cache_to_arrays = transformer_params_to_arrays
+
+
+def kv_cache_from_arrays(d: Dict[str, np.ndarray], cfg: TransformerConfig,
+                         device, dtype=torch.bfloat16):
+    """Rebuild a KV cache ({"k", "v"}: (n_layers, B, T, n_kv_heads,
+    head_dim)) in `dtype` on `device`."""
+    k = np.shape(d.get("k", ()))
+    if len(k) != 5:
+        raise ValueError(f"cache k has shape {k}, expected 5 dimensions")
+    shp = (cfg.n_layers, k[1], k[2], cfg.n_kv_heads, cfg.head_dim)
+    return _tree_from_arrays(d, {"k": shp, "v": shp}, dtype, device)

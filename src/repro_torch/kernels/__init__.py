@@ -2,5 +2,7 @@
 the reference `repro/kernels/`: csrc/ (CUDA source with a plain C
 interface), kernel.py (ctypes binding; `common.py` builds the source with
 nvcc at first use), ref.py (plain torch version) and ops.py (public
-wrapper). Ported so far: frontier_expand, segment_ell, psw_spmm."""
-from . import frontier_expand, psw_spmm, segment_ell
+wrapper). All five are ported: frontier_expand, segment_ell, psw_spmm,
+embedding_bag and flash_attention."""
+from . import (embedding_bag, flash_attention, frontier_expand, psw_spmm,
+               segment_ell)

@@ -1,0 +1,64 @@
+"""Wrapper for the embedding-bag kernel (port of the reference
+`repro/kernels/embedding_bag/ops.py`): weighted bag sums, mode sum or mean.
+
+`embedding_bag` launches the CUDA kernel for CUDA tensors and takes the
+plain torch version for CPU tensors; there is no fallback from one to the
+other, so a kernel that fails to build or launch raises. The kernel masks
+the ragged bag and column edges itself, so neither B nor D is padded to
+128 as the TPU wrapper does: at a million rows that pad copies the whole
+table on every call. The mean divides once, here, as the reference does."""
+from __future__ import annotations
+
+import torch
+
+from . import kernel as _kernel
+from .ref import embedding_bag_torch
+
+__all__ = ["embedding_bag"]
+
+# kernel launches made by embedding_bag: read and reset it as `ops.launches`
+launches = 0
+
+
+def embedding_bag(idx: torch.Tensor, weights: torch.Tensor,
+                  table: torch.Tensor, mode: str = "sum") -> torch.Tensor:
+    """out (B, D): out[b] = Σ_k weights[b,k]·table[idx[b,k]] over a
+    float32 table (V, D), divided by max(Σ_k weights[b,k], 1e-9) for
+    mode="mean". idx (B, K) int32 or int64 must lie in [0, V); a padded
+    slot holds any valid row and weight 0. All on one device."""
+    global launches
+    for name, t in (("idx", idx), ("weights", weights), ("table", table)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, not "
+                            f"{type(t).__name__}")
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode must be 'sum' or 'mean', not {mode!r}")
+    if idx.device != table.device or weights.device != table.device:
+        raise ValueError(f"idx on {idx.device}, weights on "
+                         f"{weights.device}, table on {table.device}: "
+                         "expected one device")
+    if (idx.dim() != 2 or weights.shape != idx.shape or table.dim() != 2
+            or idx.dtype not in (torch.int32, torch.int64)
+            or not weights.is_floating_point()):
+        raise ValueError(
+            f"expected int idx and float weights (B, K), table (V, D); got "
+            f"{idx.dtype} {tuple(idx.shape)}, {weights.dtype} "
+            f"{tuple(weights.shape)}, {tuple(table.shape)}")
+    if table.dtype != torch.float32:
+        raise TypeError(f"table must be float32, not {table.dtype}")
+    if table.device.type == "cuda":
+        out = torch.empty((idx.shape[0], table.shape[1]),
+                          dtype=torch.float32, device=table.device)
+        if out.numel():
+            _kernel.launch(idx.to(torch.int32).contiguous(),
+                           weights.to(torch.float32).contiguous(),
+                           table.contiguous(), out)
+            launches += 1
+    elif table.device.type == "cpu":
+        out = embedding_bag_torch(idx, weights, table)
+    else:
+        raise ValueError(f"no embedding_bag path for {table.device}")
+    if mode == "mean":
+        denom = torch.clamp_min(weights.sum(1, keepdim=True), 1e-9)
+        out = out / denom.float()
+    return out

@@ -1,0 +1,382 @@
+"""Decoder-only transformer, dense half (port of the reference
+`repro/models/transformer.py`): GQA/MQA, qk-norm, RoPE, KV-cache decode.
+
+The reference's functional API and parameter layout are kept: params are a
+dict of tensors whose layer leaves carry a leading `n_layers` axis, so
+`repro_torch.convert` maps the reference's pytree key for key. `lax.scan`
+over layers is a Python loop. The reference's sharding hints (`constrain`)
+do nothing on one device and are left out; sharding is ROADMAP slice 7.
+
+Prefill and training attention (no KV cache) goes through
+`kernels.flash_attention.flash_attention`: the hand-written kernel for CUDA
+tensors, its plain version for CPU tensors. That kernel computes what the
+reference's prefill path computes with `blockwise_attention` (top-left
+causal mask, scale D^-0.5, fp32 online softmax, output in the q dtype).
+Decode attends over the cache in plain torch, as the reference does
+outside any Pallas kernel; the cache is updated in place.
+
+The reference's cast points are kept: the norm variance, the RoPE angles
+and the attention scores in fp32, each weight cast to the compute dtype at
+its product. `cast_params` casts the whole tree once, which gives the same
+values, because each cast is deterministic.
+
+MoE (`cfg.moe`) is ROADMAP slice 8b's work, and `loss_fn` waits
+for the training path: both raise `NotImplementedError`."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..core.multihop import _resolve_device
+from ..kernels.flash_attention import attention_chunked, flash_attention
+
+__all__ = [
+    "MoEConfig",
+    "TransformerConfig",
+    "attention",
+    "blockwise_attention",
+    "cast_params",
+    "decode_step",
+    "dense_mlp",
+    "forward",
+    "init_cache",
+    "init_params",
+    "layer_fn",
+    "loss_fn",
+    "prefill",
+    "qkv",
+    "rms_norm",
+    "rope",
+]
+
+MOE_TODO = ("MoE layers are not ported yet (ROADMAP queue 1, slice 8b: "
+            "MoE)")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    aux_coef: float = 0.01
+    router_dtype: Any = torch.float32
+    ep_mode: str = "expert"
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: Optional[int] = None            # default d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    moe: Optional[MoEConfig] = None
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.bfloat16
+    remat: str = "dots"                     # kept for the training path
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    norm_eps: float = 1e-6
+    # Kept from the reference, where it selects nothing either: prefill
+    # attention always takes kernels.flash_attention here.
+    attention_impl: str = "xla"
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head if self.d_head is not None else self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 256, as the reference pads it."""
+        return -(-self.vocab_size // 256) * 256
+
+    @property
+    def n_params(self) -> int:
+        """Total parameter count (the reference's formula)."""
+        d, h, kv, dh = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim
+        attn = d * (h * dh) * 2 + d * (kv * dh) * 2  # wq,wo + wk,wv
+        if self.moe is None:
+            mlp = 3 * d * self.d_ff
+        else:
+            mlp = self.moe.n_experts * 3 * d * self.moe.d_ff_expert + d * self.moe.n_experts
+        per_layer = attn + mlp + 2 * d + (2 * dh if self.qk_norm else 0)
+        return self.n_layers * per_layer + 2 * self.padded_vocab * d + d
+
+    @property
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only top_k experts count)."""
+        if self.moe is None:
+            return self.n_params
+        d = self.d_model
+        dense = self.n_params - self.n_layers * self.moe.n_experts * 3 * d * self.moe.d_ff_expert
+        return dense + self.n_layers * self.moe.top_k * 3 * d * self.moe.d_ff_expert
+
+
+def _dense_only(cfg: TransformerConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(MOE_TODO)
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    var = x.float().square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., seq, heads, d_head); positions: (..., seq)."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    angles = positions[..., None].float() * freqs        # (..., seq, half)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def blockwise_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int,
+                        q_pos0: int = 0, scale: Optional[float] = None):
+    """Flash-style attention in plain torch: O(S·chunk) memory, exact
+    softmax, GQA by head grouping. q: (B, S, H, Dh); k, v: (B, T, Hkv, Dh).
+    One implementation with the kernel's plain version
+    (`kernels.flash_attention.attention_chunked`); chunks need not divide
+    S and T."""
+    return attention_chunked(q, k, v, causal=causal, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk, q_pos0=q_pos0, scale=scale)
+
+
+def qkv(params, x, cfg: TransformerConfig, positions):
+    """The attention inputs: q (B, S, H, Dh), k and v (B, S, Hkv, Dh), in
+    the compute dtype, qk-normed and rotated as the reference does."""
+    B, S, _ = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cdt = cfg.compute_dtype
+    q = (x @ params["wq"].to(cdt)).reshape(B, S, H, Dh)
+    k = (x @ params["wk"].to(cdt)).reshape(B, S, Hkv, Dh)
+    v = (x @ params["wv"].to(cdt)).reshape(B, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"].to(cdt), cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"].to(cdt), cfg.norm_eps)
+    return rope(q, positions, cfg.rope_theta), rope(k, positions,
+                                                     cfg.rope_theta), v
+
+
+def attention(params, x, cfg: TransformerConfig, positions, kv_cache=None,
+              cache_pos: Optional[int] = None):
+    """Self-attention. Train/prefill when kv_cache is None; decode otherwise,
+    where kv_cache is one layer's (k, v) cache views (B, T, Hkv, Dh), written
+    in place at cache_pos.
+
+    Returns (out, new_kv) where new_kv is (k, v) for cache construction."""
+    B, S, _ = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cdt = cfg.compute_dtype
+    q, k, v = qkv(params, x, cfg, positions)
+    if kv_cache is None:
+        out = flash_attention(q, k, v, causal=True)
+        new_kv = (k, v)
+    else:
+        ck, cv = kv_cache
+        ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
+        cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
+        T = ck.shape[1]
+        qg = q.reshape(B, S, Hkv, H // Hkv, Dh)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                         ck.float()) * (Dh ** -0.5)
+        # causal within the new tokens + all previous cache entries
+        kv_idx = torch.arange(T, device=x.device)
+        qpos = cache_pos + torch.arange(S, device=x.device)
+        mask = kv_idx[None, :] <= qpos[:, None]             # (S, T)
+        s = torch.where(mask, s, -torch.inf)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p, cv.float())
+        out = out.reshape(B, S, H, Dh).to(cdt)
+        new_kv = (ck, cv)
+    y = out.reshape(B, S, H * Dh) @ params["wo"].to(cdt)
+    return y, new_kv
+
+
+def dense_mlp(params, x, cfg: TransformerConfig):
+    cdt = cfg.compute_dtype
+    g = x @ params["w_gate"].to(cdt)
+    u = x @ params["w_up"].to(cdt)
+    return (F.silu(g) * u) @ params["w_down"].to(cdt)
+
+
+def layer_fn(params, x, cfg: TransformerConfig, positions, kv_cache=None,
+             cache_pos: Optional[int] = None):
+    """One layer; returns (x, new_kv, aux) as the reference does (aux, the
+    MoE balance loss, is 0.0 for a dense layer)."""
+    _dense_only(cfg)
+    cdt = cfg.compute_dtype
+    h = rms_norm(x, params["ln1"].to(cdt), cfg.norm_eps)
+    a, new_kv = attention(params["attn"], h, cfg, positions, kv_cache,
+                          cache_pos)
+    x = x + a
+    h = rms_norm(x, params["ln2"].to(cdt), cfg.norm_eps)
+    return x + dense_mlp(params["mlp"], h, cfg), new_kv, 0.0
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+def _layer_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = {
+        "wq": (d, H * Dh), "wk": (d, Hkv * Dh), "wv": (d, Hkv * Dh),
+        "wo": (H * Dh, d),
+    }
+    if cfg.qk_norm:
+        attn["q_norm"] = (Dh,)
+        attn["k_norm"] = (Dh,)
+    if cfg.moe is None:
+        mlp = {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
+               "w_down": (cfg.d_ff, d)}
+    else:
+        E, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        mlp = {"router": (d, E), "w_gate": (E, d, f), "w_up": (E, d, f),
+               "w_down": (E, f, d)}
+    return {"attn": attn, "mlp": mlp, "ln1": (d,), "ln2": (d,)}
+
+
+def init_params(cfg: TransformerConfig,
+                generator: Optional[torch.Generator] = None,
+                device=None) -> Dict[str, Any]:
+    """Stacked-layer params drawn on `device` (default: the GPU) from
+    `generator` (default: seeded 0 on that device), with the reference's
+    scales: matrices normal·fan_in^-0.5, norm scales 1, embed normal·0.02,
+    lm_head normal·d^-0.5. A torch generator gives other numbers than a
+    jax key: tests carry the reference's params across with `convert`."""
+    _dense_only(cfg)
+    dev = _resolve_device(device, "the model")
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+    dt = cfg.param_dtype
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=generator, dtype=dt,
+                           device=dev).mul_(std)
+
+    def init_tree(tree):
+        out = {}
+        for name, shp in tree.items():
+            if isinstance(shp, dict):
+                out[name] = init_tree(shp)
+            elif len(shp) == 1:                      # norm scales
+                out[name] = torch.ones((cfg.n_layers, *shp), dtype=dt,
+                                       device=dev)
+            else:
+                out[name] = normal((cfg.n_layers, *shp), shp[-2] ** -0.5)
+        return out
+
+    d = cfg.d_model
+    return {
+        "embed": normal((cfg.padded_vocab, d), 0.02),
+        "layers": init_tree(_layer_shapes(cfg)),
+        "final_norm": torch.ones((d,), dtype=dt, device=dev),
+        "lm_head": normal((cfg.padded_vocab, d), d ** -0.5),
+    }
+
+
+def _map(tree, fn):
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def cast_params(params, cfg: TransformerConfig):
+    """Every leaf in the compute dtype: the values each product's cast
+    would give, made once (a serving copy; the fp32 tree stays as it is)."""
+    return _map(params, lambda t: t.to(cfg.compute_dtype))
+
+
+def _layer(layers, i: int):
+    return _map(layers, lambda t: t[i])
+
+
+# ---------------------------------------------------------------------------
+# Forward / decode
+# ---------------------------------------------------------------------------
+def _embed(params, tokens, cfg: TransformerConfig):
+    return params["embed"][tokens].to(cfg.compute_dtype)
+
+
+def forward(params, tokens: torch.Tensor, cfg: TransformerConfig):
+    """tokens: (B, S) -> (logits (B, S, vocab) in compute dtype, aux): aux
+    is the reference's summed MoE loss, a float32 0 for dense layers."""
+    _dense_only(cfg)
+    B, S = tokens.shape
+    cdt = cfg.compute_dtype
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for i in range(cfg.n_layers):
+        x, _, _ = layer_fn(_layer(params["layers"], i), x, cfg, positions)
+    x = rms_norm(x, params["final_norm"].to(cdt), cfg.norm_eps)
+    logits = torch.einsum("bsd,vd->bsv", x, params["lm_head"].to(cdt))
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params, batch, cfg: TransformerConfig):
+    raise NotImplementedError("the training path (loss_fn and "
+                              "flash_attention's backward in training) is "
+                              "not ported yet (ROADMAP queue 1, slice 8b)")
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    dev = _resolve_device(device, "the model")
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
+            max_seq: int, cache_dtype=torch.bfloat16
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run the prompt, return (logits_last (B, vocab), cache)."""
+    _dense_only(cfg)
+    B, S = tokens.shape
+    cdt = cfg.compute_dtype
+    cache = init_cache(cfg, B, max_seq, dtype=cache_dtype,
+                       device=tokens.device)
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for i in range(cfg.n_layers):
+        x, (k, v), _ = layer_fn(_layer(params["layers"], i), x, cfg,
+                                positions)
+        cache["k"][i, :, :S] = k.to(cache_dtype)
+        cache["v"][i, :, :S] = v.to(cache_dtype)
+    # the norm is per token: the last token's alone is the same values
+    x = rms_norm(x[:, -1], params["final_norm"].to(cdt), cfg.norm_eps)
+    logits = torch.einsum("bd,vd->bv", x, params["lm_head"].to(cdt))
+    return logits, cache
+
+
+def decode_step(params, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                pos: int, cfg: TransformerConfig):
+    """One decode step. tokens: (B, 1) int; pos: the cache position.
+    Returns (logits (B, vocab), cache), the cache updated in place."""
+    _dense_only(cfg)
+    B, S = tokens.shape
+    cdt = cfg.compute_dtype
+    x = _embed(params, tokens, cfg)
+    positions = (pos + torch.arange(S, device=x.device)).expand(B, S)
+    for i in range(cfg.n_layers):
+        x, _, _ = layer_fn(_layer(params["layers"], i), x, cfg, positions,
+                           kv_cache=(cache["k"][i], cache["v"][i]),
+                           cache_pos=pos)
+    x = rms_norm(x[:, -1], params["final_norm"].to(cdt), cfg.norm_eps)
+    logits = torch.einsum("bd,vd->bv", x, params["lm_head"].to(cdt))
+    return logits, cache

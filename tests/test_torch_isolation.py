@@ -26,7 +26,13 @@ def test_every_module_imports_without_jax_or_repro():
                  "kernels.segment_ell.kernel", "kernels.segment_ell.ops",
                  "kernels.segment_ell.ref", "kernels.psw_spmm.kernel",
                  "kernels.psw_spmm.ops", "kernels.psw_spmm.ref",
-                 "graph.padding", "core.psw", "convert"):
+                 "graph.padding", "core.psw", "convert",
+                 "kernels.flash_attention.kernel",
+                 "kernels.flash_attention.ops", "kernels.flash_attention.ref",
+                 "kernels.embedding_bag.kernel", "kernels.embedding_bag.ops",
+                 "kernels.embedding_bag.ref", "models.transformer",
+                 "configs.granite_3_2b", "configs.granite_34b",
+                 "configs.qwen3_14b", "launch.serve"):
         assert "repro_torch." + name in mods, name
     code = (
         "import sys\n"

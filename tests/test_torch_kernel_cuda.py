@@ -10,19 +10,27 @@ kernel and the plain version add the same values in the same slot order);
 psw_spmm is rtol 1e-5, atol 1e-5 against the plain version (TestPswSpmm's
 tolerance: cuBLAS and index_add_ sum in another order) and 1e-4 against the
 edge oracle; the PSW sweep's segment-sum is bitwise equal across runs and
-within 1e-6 of a float64 sum."""
+within 1e-6 of a float64 sum; flash_attention is rtol/atol 2e-5 against its
+plain version in float32 (TestFlashAttention's tolerance: the fp32 SIMT
+kernel and cuBLAS sum in another order) and 2e-2 in bfloat16 (test_bf16's:
+the kernel rounds P to bf16 for P·V); embedding_bag is bitwise (both add
+w·row in slot order, rounded twice in fp32)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import psw
 from repro_torch.graph import pad_to_ell
+from repro_torch.kernels import embedding_bag as eb
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import psw_spmm as ps
 from repro_torch.kernels import segment_ell as se
 from repro_torch.kernels.frontier_expand import (build_frontier_plan,
                                                  frontier_expand_counts,
                                                  frontier_expand_torch,
                                                  ops, plan_to_device)
+from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.psw_spmm import kernel as ps_kernel
 
 pytestmark = pytest.mark.cuda
@@ -179,3 +187,112 @@ def test_psw_spmm_empty_blocks_without_filler_tiles(cuda):
     with pytest.raises(ValueError):      # not sorted by dst block
         ps.psw_spmm(coords.flip(0).to(cuda), tiles.to(cuda), x.to(cuda), 5,
                     128)
+
+
+def randn(shape, dev, seed, dtype=torch.float32):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+FA_SHAPES = [(2, 256, 256, 4, 2),      # S == T, GQA
+             (1, 1000, 1000, 8, 1),    # ragged S == T, MQA
+             (2, 128, 512, 4, 4),      # S < T
+             (1, 300, 77, 2, 1)]       # S > T, both ragged
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,t,h,hkv", FA_SHAPES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda, dtype, d, b, s, t, h, hkv,
+                                       causal):
+    q = randn((b, s, h, d), cuda, s + d, dtype)
+    k = randn((b, t, hkv, d), cuda, t + d + 1, dtype)
+    v = randn((b, t, hkv, d), cuda, t + d + 2, dtype)
+    before = fa.ops.launches
+    got = fa.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.ops.launches == before + 1 and got.dtype == dtype
+    want = fa.flash_attention_torch(q, k, v, causal)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [16, 48, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_narrow_heads_and_strided_inputs(cuda, dtype, d):
+    """D below the kernel's 64/128 build widths, and q, k, v read through
+    the strides of one packed projection (B, S, H + 2 Hkv, D), plus a view
+    whose base is off the 16-byte grid (copied by the wrapper)."""
+    B, S, H, Hkv = 2, 200, 4, 2
+    packed = randn((B, S, H + 2 * Hkv, d), cuda, d, dtype)
+    q, k, v = packed[:, :, :H], packed[:, :, H:H + Hkv], packed[:, :, H + Hkv:]
+    assert not q.is_contiguous() and fa_kernel.vector_ready(q)
+    got = fa.flash_attention(q, k, v, True)
+    want = fa.flash_attention_torch(q, k, v, True)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    flat = randn((B * S * H * d + 1,), cuda, 7, dtype)
+    q_off = flat[1:].reshape(B, S, H, d)
+    assert not fa_kernel.vector_ready(q_off)
+    got = fa.flash_attention(q_off, k, v, False)
+    want = fa.flash_attention_torch(q_off, k, v, False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_refused_launch_raises(cuda):
+    q = torch.zeros((65536, 1, 1, 16), device=cuda)     # grid.z > 65535
+    out = torch.empty_like(q)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa_kernel.launch(q, q, q, out, True)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):                      # D = 8
+        fa.flash_attention(*(torch.zeros((1, 4, 2, 8), device=cuda),) * 3)
+    with pytest.raises(ValueError):                      # one device
+        fa.flash_attention(q, q.cpu(), q)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("d", [64, 100, 300])
+def test_embedding_bag_bitwise_equals_plain(cuda, d, mode):
+    """Left-padded histories (item 0, weight 0) of K = 200 slots, and a
+    K = 37 case with real weights; int32 and int64 ids."""
+    rng = np.random.default_rng(d)
+    V = 20_000
+    table = torch.from_numpy(rng.normal(size=(V, d)).astype(np.float32)
+                             ).to(cuda)
+    for B, K in ((513, 200), (64, 37)):
+        lens = rng.integers(1, K + 1, B)
+        real = np.arange(K)[None, :] >= (K - lens)[:, None]
+        idx = np.where(real, rng.integers(1, V, (B, K)), 0).astype(np.int32)
+        w = (real * rng.random((B, K))).astype(np.float32)
+        idx_t, w_t = torch.from_numpy(idx).to(cuda), torch.from_numpy(w).to(
+            cuda)
+        before = eb.ops.launches
+        got = eb.embedding_bag(idx_t, w_t, table, mode=mode)
+        torch.cuda.synchronize()
+        assert eb.ops.launches == before + 1
+        want = eb.embedding_bag_torch(idx_t, w_t, table)
+        if mode == "mean":
+            want = want / torch.clamp_min(w_t.sum(1, keepdim=True), 1e-9)
+        assert torch.equal(got, want)
+        assert torch.equal(eb.embedding_bag(idx_t.long(), w_t, table,
+                                            mode=mode), got)
+        cpu = eb.embedding_bag(idx_t.cpu(), w_t.cpu(), table.cpu(),
+                               mode=mode)
+        torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-5)
+
+
+def test_embedding_bag_refused_launch_raises(cuda):
+    idx = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    w = torch.ones((1, 1), device=cuda)
+    table = torch.zeros((1, 128 * 65536), device=cuda)   # grid.y > 65535
+    out = torch.empty((1, 128 * 65536), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        eb_kernel.launch(idx, w, table, out)
+    empty = eb.embedding_bag(idx[:0], w[:0], table[:, :8])
+    assert tuple(empty.shape) == (0, 8)
+    with pytest.raises(TypeError):
+        eb.embedding_bag(idx, w, table[:, :8].bfloat16())
