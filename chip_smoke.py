@@ -39,14 +39,17 @@ graph store read by multi-hop queries and analysed by PSW:
      458,752 power-law edges, part still buffered; F = 128) and a
      Cora-shaped graph (2,708 vertices, 10,556 edges, F = 1,433), each
      against the edge oracle; then each kernel against its plain version,
-     with times, bound and library yardstick;
+     with times, bound and library yardstick (psw_spmm on its prebuilt row
+     layout, with `prepare_rows`, the tile compaction and the tile API
+     timed on their own);
   7. LM serving at granite-3-2b's full config (40 layers, d 2,048, 32 heads,
      8 kv heads, vocab 49,155; random fp32 weights made on the device from
      --seed, bf16 compute): `serve_requests` with 8 prompts of 4,096 tokens
      in batches of 4, 32 generated tokens each, every prefill layer through
      the flash_attention kernel; then the kernel against its plain version
      on layer 0's q/k/v at the serve shape (bf16 within 2e-2, fp32 within
-     2e-5), with the SDPA yardstick there and at 32,768 tokens; a 2-layer
+     2e-5), with the SDPA yardstick there, at 32,768 tokens and at
+     qwen3-14b's heads (40, 8 kv, D 128; 4,096 tokens); a 2-layer
      fp32 cut at full width (prefill through the kernel against the plain
      attention, decode against forward, within 1e-4); the share of greedy
      tokens the plain path agrees with;
@@ -579,69 +582,94 @@ def segment_ell_vs_plain(torch, se, se_kernel, ell, reps: int) -> dict:
 
 
 def psw_spmm_vs_plain(torch, ps, ps_kernel, edges, reps: int) -> dict:
+    """The row-gather kernel on its prebuilt row layout against the plain
+    version (rowwise 1e-5, repeat runs bitwise), with times, the bound and
+    the torch.sparse.mm yardstick on the same CSR; the layout builds timed
+    on their own: `prepare_rows` from the edges and `compact_tiles` from
+    the reference's host tiles (equal to it bitwise)."""
     src, dst, x = edges
     n, F = x.shape
     dev = x.device
-    coords_np, tiles_np, nb = ps.prepare_blocks(src, dst, n, 128)
-    coords = torch.from_numpy(coords_np).to(dev)
-    tiles = torch.from_numpy(tiles_np).to(dev)
-    del coords_np, tiles_np                    # free the host copy
-    T = coords.shape[0]
-    xp = torch.nn.functional.pad(x, (0, 0, 0, nb * 128 - n))
-    ptr = ps.tile_ptr(coords, nb)
-    out = torch.empty((nb * 128, F), dtype=torch.float32, device=dev)
-    ps_kernel.launch(ptr, coords, tiles, xp, out)
-    plain = ps.psw_spmm_torch(coords, tiles, xp, nb, 128)
+    lay = ps.prepare_rows(src, dst, n, 128, device=dev)
+    nnz, C = lay.nnz, int(lay.chunks.shape[0])
+    out = torch.empty((n, F), dtype=torch.float32, device=dev)
+    scratch = torch.empty((C, F), dtype=torch.float32, device=dev)
+    ps_kernel.launch(lay, x, out, scratch)
+    plain = ps.psw_spmm_rows_torch(lay.row_ptr, lay.col, lay.val, x, 128)
     torch.cuda.synchronize()
     ok, err, ratio = row_tolerance(out, plain, 1e-5, 1e-5)
     check(ok, f"psw_spmm kernel vs plain version at F={F}: max abs err "
               f"{err}, {ratio:.2f}x the tolerance")
     again = torch.empty_like(out)
-    ps_kernel.launch(ptr, coords, tiles, xp, again)
+    ps_kernel.launch(lay, x, again, scratch)
     torch.cuda.synchronize()
     check(torch.equal(out, again), "psw_spmm kernel: a second run differs")
     del plain, again
-    ms = cuda_ms(torch, lambda: ps_kernel.launch(ptr, coords, tiles, xp,
-                                                 out), reps)
-    plain_ms = cuda_ms(torch, lambda: ps.psw_spmm_torch(coords, tiles, xp,
-                                                        nb, 128),
-                       max(1, reps // 4))
-    # yardstick: one cuSPARSE SpMM of the CSR adjacency, multiplicities
-    # as values
-    ij = torch.from_numpy(np.stack([dst, src])).to(dev)
+    ms = cuda_ms(torch, lambda: ps_kernel.launch(lay, x, out, scratch), reps)
+    plain_ms = cuda_ms(torch, lambda: ps.psw_spmm_rows_torch(
+        lay.row_ptr, lay.col, lay.val, x, 128), max(1, reps // 4))
+    rows_ms = cuda_ms(torch, lambda: ps.prepare_rows(src, dst, n, 128,
+                                                     device=dev),
+                      max(1, reps // 4))
+    # yardstick: one cuSPARSE SpMM of the same CSR, multiplicities as values
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")        # "sparse CSR is in beta"
-        adj = torch.sparse_coo_tensor(
-            ij, torch.ones(ij.shape[1], device=dev), (n, n)).coalesce() \
-            .to_sparse_csr()
+        adj = torch.sparse_csr_tensor(lay.row_ptr, lay.col.long(), lay.val,
+                                      size=(n, n))
     lib = torch.sparse.mm(adj, x)
     torch.cuda.synchronize()
-    lib_ok, lib_err, _ = row_tolerance(lib, out[:n], 1e-4, 1e-4)
+    lib_ok, lib_err, _ = row_tolerance(lib, out, 1e-4, 1e-4)
     check(lib_ok, f"torch.sparse.mm vs psw_spmm kernel: max abs err "
                   f"{lib_err}")
     del lib
     library_ms = cuda_ms(torch, lambda: torch.sparse.mm(adj, x), reps)
-    del adj, ij
-    # the function needs each tile read once and one multiply-add per
-    # nonzero tile entry and column; the kernel's dense tile products
-    # (zeros included) are a side figure
-    bytes_once = T * (128 * 128 * 4 + 8) + (nb * 8) + 2 * nb * 128 * F * 4
-    nnz = int(torch.count_nonzero(tiles))
+    del adj
+
+    # the tile API: the reference's host tiles, compacted on the card
+    coords_np, tiles_np, nb = ps.prepare_blocks(src, dst, n, 128)
+    coords = torch.from_numpy(coords_np).to(dev)
+    tiles = torch.from_numpy(tiles_np).to(dev)
+    del coords_np, tiles_np                    # free the host copy
+    T = int(coords.shape[0])
+    tl = ps.compact_tiles(coords, tiles, nb, 128, nb)
+    check(torch.equal(tl.row_ptr[:n + 1], lay.row_ptr)
+          and torch.equal(tl.col, lay.col) and torch.equal(tl.val, lay.val)
+          and torch.equal(tl.chunks, lay.chunks),
+          f"compact_tiles != prepare_rows at F={F}")
+    del tl
+    compact_ms = cuda_ms(torch, lambda: ps.compact_tiles(coords, tiles, nb,
+                                                         128, nb),
+                         max(1, reps // 4))
+    xp = torch.nn.functional.pad(x, (0, 0, 0, nb * 128 - n))
+    tile_api = ps.psw_spmm(coords, tiles, xp, nb, 128)
+    torch.cuda.synchronize()
+    check(torch.equal(tile_api[:n], out) and not tile_api[n:].any(),
+          f"the tile API psw_spmm != the row kernel at F={F}")
+    del tile_api
+    tile_api_ms = cuda_ms(torch, lambda: ps.psw_spmm(coords, tiles, xp, nb,
+                                                     128), max(1, reps // 4))
+    del coords, tiles, xp
+
+    # the function needs the CSR, x and out moved once and one multiply-add
+    # per stored entry and column; the gathers (every entry's x row) and the
+    # dense-tile design's floor (the tiles read once) are side figures
+    csr_bytes = (n + 1) * 8 + nnz * 8
+    bytes_once = csr_bytes + 2 * n * F * 4
     ops = 2 * nnz * F
-    dense_flops = 2 * T * 128 * 128 * F
-    return {"n": n, "edges": int(src.shape[0]), "tiles": T, "F": F,
-            "tile_nnz": nnz, "tile_bytes": T * 128 * 128 * 4,
-            "max_abs_err": err,
-            "err_over_tolerance": ratio, "ms": ms,
+    tile_bytes = T * 128 * 128 * 4
+    return {"n": n, "edges": int(src.shape[0]), "nnz": nnz, "F": F,
+            "hub_rows": int(lay.hub_rows.shape[0]), "chunks": C,
+            "longest_row": int((lay.row_ptr[1:] - lay.row_ptr[:-1]).max()),
+            "max_abs_err": err, "err_over_tolerance": ratio, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_max_abs_err": lib_err,
-            "bound_ms": max(bytes_once / HBM_BYTES_PER_S,
-                            ops / FP32_OPS_PER_S) * 1e3,
-            "bound_by": ("bytes" if bytes_once / HBM_BYTES_PER_S
-                         >= ops / FP32_OPS_PER_S else "operations"),
-            "bytes_once": bytes_once, "flops": ops,
-            "dense_tile_flops": dense_flops,
-            "dense_tile_tflops_per_s": dense_flops / (ms * 1e-3) / 1e12}
+            "prepare_rows_ms": rows_ms, "compact_tiles_ms": compact_ms,
+            "tile_api_ms": tile_api_ms,
+            **bound(bytes_once, ops, FP32_OPS_PER_S),
+            "gather_bound_ms": (csr_bytes + nnz * max(F * 4, 32)
+                                + n * F * 4) / HBM_BYTES_PER_S * 1e3,
+            "tiles": T, "tile_bytes": tile_bytes,
+            "tile_read_bound_ms": tile_bytes / HBM_BYTES_PER_S * 1e3}
 
 
 BF16_OPS_PER_S = 989e12    # H100 SXM, dense bf16 on the tensor cores
@@ -757,7 +785,8 @@ class plain_attention:
 def phase_serve(torch, dev, cfg, args, clock, fa_kernel):
     """LM serving at `cfg` through `serve_requests`, then the checks:
     (i) the kernel against its plain version on layer 0's q/k/v at the
-    serve shape, bf16 and fp32, with the SDPA yardstick (and at 32k tokens);
+    serve shape, bf16 and fp32, with the SDPA yardstick (and at 32k tokens,
+    and at qwen3-14b's D = 128 heads);
     (ii) a 2-layer fp32 cut of the model, prefill through the kernel against
     prefill through the plain version, decode against forward;
     (iii) the share of greedy tokens the plain path agrees with."""
@@ -824,6 +853,20 @@ def phase_serve(torch, dev, cfg, args, clock, fa_kernel):
     log(f"  kernel vs SDPA, {args.long_prompt} tokens: "
         + json.dumps(long_bf16))
     del q, k, v
+    # qwen3-14b's heads (H 40, Hkv 8, D 128): the D = 128 template at
+    # S = T = 4,096, batch 1, on random inputs at the scale of layer 0's
+    from repro_torch.configs import get_arch
+    wide = get_arch("qwen3-14b").config
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 24)
+    q, k, v = (torch.randn((1, args.prompt_len, h, wide.head_dim),
+                           generator=gen, device=dev).to(torch.bfloat16)
+               for h in (wide.n_heads, wide.n_kv_heads, wide.n_kv_heads))
+    d128_bf16 = attention_vs_plain(torch, fa, fa_kernel, q, k, v, 2e-2,
+                                   args.reps)
+    log("  kernel vs plain, qwen3-14b heads (D 128): "
+        + json.dumps(d128_bf16))
+    del q, k, v
     n_ops = decode_ops(torch, tf, served, cfg, args.lm_batch, dev)
     del served
     log(f"  one decode step dispatches {n_ops} aten ops "
@@ -868,7 +911,8 @@ def phase_serve(torch, dev, cfg, args, clock, fa_kernel):
     log(f"  greedy tokens of batch 1 equal on the kernel and plain paths: "
         f"{agree:.4f} (not a gate)")
     del params
-    return launches, serve_bf16, [serve_bf16, serve_fp32, long_bf16], {
+    return launches, serve_bf16, [serve_bf16, serve_fp32, long_bf16,
+                                   d128_bf16], {
         "batches": batches, "kv_cache_gib": cache_gib, "logit_errs": errs,
         "greedy_agreement": agree, "decode_aten_ops": n_ops}
 
@@ -1041,7 +1085,6 @@ def main() -> None:
         f"{torch.cuda.get_device_name(0)}")
     build_kernels(common, [kernel, se_kernel, ps_kernel, fa_kernel,
                            eb_kernel])
-    log(f"  psw_spmm dynamic shared memory: {ps_kernel.smem_bytes()} bytes")
 
     clock = Clock(torch)
     phase_small(core, dev, args.seed)

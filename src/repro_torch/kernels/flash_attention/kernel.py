@@ -1,4 +1,5 @@
-"""Bind the Hopper flash-attention kernel (csrc/flash_attention.cu).
+"""Bind the Hopper flash-attention kernels (csrc/flash_attention.cu: bf16 on
+wgmma + TMA, fp32 on SIMT).
 
 Built at first use by `kernels/common.py` (nvcc, sm_90a, into
 `build/kernels/flash_attention_<hash>.so`) and loaded with ctypes; nothing
@@ -38,10 +39,14 @@ def load_library():
 
 
 def vector_ready(t: torch.Tensor) -> bool:
-    """What the kernel reads through strides: the last dimension dense, the
-    other strides and the base address on 16-byte boundaries."""
+    """What the kernel reads through strides (the bf16 kernel through TMA
+    tensor maps): the last dimension dense, the other strides and the base
+    address on 16-byte boundaries, and no stride 0 on a dimension longer
+    than 1 (a broadcast view)."""
     step = 16 // t.element_size()
-    return (t.stride(-1) == 1 and all(s % step == 0 for s in t.stride()[:-1])
+    return (t.stride(-1) == 1
+            and all(s % step == 0 and (s > 0 or n == 1)
+                    for s, n in zip(t.stride()[:-1], t.shape[:-1]))
             and t.data_ptr() % 16 == 0)
 
 

@@ -1,9 +1,11 @@
-"""PSW block-sparse SpMM: a hand-written CUDA kernel for Hopper
-(csrc/psw_spmm.cu), its plain torch version (ref.py) and the tile builder
-and wrapper (ops.py). The launch count is `ops.launches`."""
+"""PSW SpMM: a hand-written CUDA row-gather kernel for Hopper
+(csrc/psw_spmm.cu), its plain torch versions (ref.py) and the row-layout
+builders and wrappers (ops.py). The launch count is `ops.launches`."""
 from . import ops
-from .ops import prepare_blocks, psw_spmm, psw_spmm_edges, tile_ptr
-from .ref import psw_spmm_torch, spmm_dense_torch
+from .ops import (CHUNK, RowLayout, compact_tiles, prepare_blocks,
+                  prepare_rows, psw_spmm, psw_spmm_edges, psw_spmm_rows)
+from .ref import psw_spmm_rows_torch, psw_spmm_torch, spmm_dense_torch
 
-__all__ = ["ops", "prepare_blocks", "psw_spmm", "psw_spmm_edges",
-           "psw_spmm_torch", "spmm_dense_torch", "tile_ptr"]
+__all__ = ["CHUNK", "RowLayout", "compact_tiles", "ops", "prepare_blocks",
+           "prepare_rows", "psw_spmm", "psw_spmm_edges", "psw_spmm_rows",
+           "psw_spmm_rows_torch", "psw_spmm_torch", "spmm_dense_torch"]

@@ -1,220 +1,286 @@
-// PSW block-sparse SpMM (A @ X over dense adjacency tiles), for Hopper
+// PSW sparse A @ X as a row gather over a destination CSR, for Hopper
 // (sm_90a).
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/psw_spmm/psw_spmm.py::psw_spmm_pallas
 // (wrapper src/repro/kernels/psw_spmm/ops.py::psw_spmm):
 //
-//   out[db*128 + i, f] = sum over tiles t of dst block db, k = 0..127:
-//                        tiles[t, i, k] * x[coords[t, 1]*128 + k, f]
+//   out[r, f] = sum over entries e of row r:  val[e] * x[col[e], f]
 //
-// coords (T, 2) int32 (dst block, src block), sorted by dst block; tiles
-// (T, 128, 128) float32; x (n_src_blocks*128, F) float32 -> out
-// (n_dst_blocks*128, F).
+// row_ptr (n_rows + 1) int64, col (nnz) int32, val (nnz) float32: the
+// adjacency as a destination CSR, each row's entries sorted by source, val
+// the edge multiplicities the dense tiles held (ops.py::prepare_rows builds
+// it from edges on the device, ops.py::compact_tiles from tiles). x (n_src,
+// F) float32 -> out (n_rows, F) float32, neither padded.
 //
-// The Pallas kernel runs a sequential grid over the active tiles and lets
-// consecutive tiles of one dst block accumulate in the same VMEM output
-// block, zeroing it on the first visit. GPU blocks run in no order, so
-// here one CTA owns one (dst block, 128-column block) of the output: it
-// walks its tiles through `tile_ptr` (the CSR over the dst-sorted coords)
-// and writes once. No atomics: the result is deterministic, and a dst block
-// with no tiles is written as zeros. Like the Pallas kernel (`o_ref +=
-// dot(tile, x)`), each tile's product is summed on its own, in registers,
-// and then added to the block's running total, kept in shared memory. One
-// running sum over all of a hub's tiles instead missed a float64 oracle by
-// 0.0236 at a destination with ~126k in-edges, against 9.1e-4 this way
-// (chip_smoke.py phase 6 on an H100).
+// The Pallas kernel multiplies dense 128 x 128 adjacency tiles against x,
+// which the MXU does for free. On the card the tiles of a social graph are
+// 0.03% dense (the live tree of chip_smoke.py phase 6: 349,075 nonzeros in
+// 63,953 tiles, 4.19 GB), so a tile kernel's floor is reading zeros. This
+// kernel reads only the nonzeros.
 //
-// Bound: operations. Each active tile costs 2*128*128*F flops against
-// 64 KiB of tile, so at F = 128 the kernel does 64 flops a tile byte, far
-// above the 67 TFLOP/s / 3.35 TB/s = 20 of fp32 outside the tensor cores.
-// It stays fp32 SIMT (no TF32: the reference's tests hold rtol 1e-5),
-// blocked for register reuse:
-//   * 256 threads, each an 8 x 8 block of the 128 x 128 output tile;
-//   * the k dimension in slices of 32: the tile slice (stored k-major, row
-//     stride padded to 132 floats) and the x slice go to shared memory, two
-//     stages, so the next slice's global loads are in flight while the
-//     current one is multiplied;
-//   * per k, each thread reads 8 tile and 8 x values as float4s and does 64
-//     FMAs, in k order; after a tile's last slice it adds its 64 sums to
-//     its totals (thread-private, laid out so a warp's accesses hit 32
-//     banks) and starts the next tile from zero;
-//   * shared memory: 2 x 33,280 bytes of stages + 65,536 of totals, above
-//     the 48 KiB default, so the launch opts in to more dynamic shared
-//     memory.
-// Tile offsets are 64-bit (T*128*128 passes 2**31 at 131k tiles).
+// Bound: bytes. The function needs the CSR, x and out moved once (36.6 MB
+// at the live tree's F = 128, 0.011 ms at 3.35 TB/s) and 2 * nnz * F
+// operations (0.09 GFLOP, far less). The gathers move nnz * F * 4 bytes
+// (179 MB at F = 128), but x (16.8 MB) stays in the 50 MB L2. Design:
+//   * one warp per row, lanes on feature columns: 4 adjacent columns a lane
+//     as one float4 load when F % 4 == 0 (and the pointers are 16-byte
+//     aligned), else 4 columns 32 apart; a warp covers 128 columns, the
+//     grid's y dimension the rest. The warp loads 32 entries' (col, val)
+//     with one coalesced load, broadcasts them with __shfl_sync, and issues
+//     4 entries' x loads before it adds any, so they are in flight
+//     together. At most 64 registers a thread, so 32 warps an SM hide the
+//     gathers' latency (8 loads in flight cost more in warps than they
+//     gain: scripts/psw_spmm_variants.py times these constants);
+//   * the reference's summation shape: the entries of one source block
+//     (col / block) are summed on their own, fma from zero in source order,
+//     and each such partial is added to the row's running total. For finite
+//     x that is the tile kernel's sequence of operations with the zero
+//     terms left out. One running sum over all of a hub's entries instead
+//     missed a float64 oracle by 0.0236 at a destination with ~126k
+//     in-edges, against 9.1e-4 this way (chip_smoke.py phase 6 on an H100);
+//   * load balance: a row with more than `max_row` entries (a power-law
+//     hub: the live tree's has 32,768 distinct sources) is cut at source
+//     block boundaries into chunks (ops.py's plan). Pass 1 sums every chunk
+//     into scratch (n_chunks, F), launched first, and every other row
+//     straight into out; pass 2 adds each hub's chunk totals in chunk
+//     order, one column a lane so that 64 loads are in flight, launched
+//     behind pass 1 (programmatic dependent launch). One warp on a
+//     12,204-row destination once cost frontier_expand 242 ms;
+//   * no atomics and a fixed order, so repeat runs are bitwise equal; a row
+//     without entries is written as zeros.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kB = 128;                       // tile side
-constexpr int kF = 128;                       // output columns per CTA
-constexpr int kKS = 32;                       // k-slice
-constexpr int kAStride = kB + 4;              // k-major tile slice row
-constexpr int kThreads = 256;
-constexpr int kTM = 8;                        // rows per thread
-constexpr int kTN = 8;                        // columns per thread
-constexpr int kAFloats = kKS * kAStride;
-constexpr int kXFloats = kKS * kF;
-constexpr int kStageFloats = kAFloats + kXFloats;
-constexpr int kTotFloats = kTM * kTN * kThreads;
-constexpr int kSmemBytes =
-    (2 * kStageFloats + kTotFloats) * (int)sizeof(float);
-constexpr int kLoads = kKS * kB / kThreads;   // floats each thread stages
+constexpr int kWarp = 32;
+constexpr int kCols = 4;                  // columns per lane
+constexpr int kSlab = kWarp * kCols;      // columns per warp
+constexpr int kWarpsPerBlock = 4;   // a block retires with its slowest warp
+constexpr int kMinBlocks = 8;       // per SM: 64 registers a thread at most
+constexpr int kUnroll = 4;                // x loads in flight per lane
+constexpr int kRowsPerWarp = 2;           // rows a pass-1 warp walks
+constexpr int kHubLoads = 64;             // pass 2's loads in flight
+constexpr unsigned kFull = 0xffffffffu;
 
-static_assert(kB / kTM * (kF / kTN) == kThreads, "thread layout");
-static_assert(kLoads * kThreads == kKS * kB, "tile slice split");
-static_assert(kLoads * kThreads == kKS * kF, "x slice split");
-
-struct Slice {
-  float a[kLoads];
-  float x[kLoads];
+struct Rows {
+  const int64_t* row_ptr;   // (n_rows + 1)
+  const int32_t* col;       // (nnz)
+  const float* val;         // (nnz)
+  const int64_t* hub_rows;  // (n_hubs)
+  const int64_t* hub_ptr;   // (n_hubs + 1): hub h's chunks
+  const int64_t* chunks;    // (n_chunks, 2): [entry begin, entry end)
+  const float* x;           // (n_src, F)
+  float* out;               // (n_rows, F)
+  float* scratch;           // (n_chunks, F)
+  int64_t n_rows, n_chunks, n_hubs, F;
+  int block, max_row;
 };
 
-// Step s of a CTA covers tile t0 + s / 4, k-slice (s % 4) * 32.
-__device__ __forceinline__ void load_slice(
-    Slice& r, const float* __restrict__ tiles, const int32_t* __restrict__ coords,
-    const float* __restrict__ x, int64_t t, int k0, int64_t x_rows,
-    int64_t n_cols, int64_t f0, int tid) {
-  const float* tile = tiles + t * (int64_t)(kB * kB);
+// The lane's 4 columns of row `r` (row stride F) at slab f0, zeros beyond F.
+template <bool VEC>
+__device__ __forceinline__ void load_cols(const float* __restrict__ r,
+                                          int64_t f0, int lane, int64_t F,
+                                          float v[kCols]) {
+  if (VEC) {
+    const int64_t f = f0 + lane * kCols;
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (f < F) t = __ldg(reinterpret_cast<const float4*>(r + f));
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
 #pragma unroll
-  for (int l = 0; l < kLoads; ++l) {
-    const int lin = l * kThreads + tid;   // row-major over (128 rows, 32 k)
-    const int row = lin / kKS, kk = lin % kKS;
-    r.a[l] = tile[row * kB + k0 + kk];
-  }
-  const int64_t xrow0 = (int64_t)coords[2 * t + 1] * kB + k0;
-#pragma unroll
-  for (int l = 0; l < kLoads; ++l) {
-    const int lin = l * kThreads + tid;   // row-major over (32 k, 128 cols)
-    const int kk = lin / kF, c = lin % kF;
-    const int64_t xr = xrow0 + kk, f = f0 + c;
-    r.x[l] = (xr < x_rows && f < n_cols) ? x[xr * n_cols + f] : 0.f;
+    for (int j = 0; j < kCols; ++j) {
+      const int64_t f = f0 + lane + kWarp * j;
+      v[j] = f < F ? __ldg(r + f) : 0.f;
+    }
   }
 }
 
-__device__ __forceinline__ void store_slice(const Slice& r, float* stage,
-                                            int tid) {
-  float* as = stage;
-  float* xs = stage + kAFloats;
+template <bool VEC>
+__device__ __forceinline__ void store_cols(float* __restrict__ r, int64_t f0,
+                                           int lane, int64_t F,
+                                           const float v[kCols]) {
+  if (VEC) {
+    const int64_t f = f0 + lane * kCols;
+    if (f < F)
+      *reinterpret_cast<float4*>(r + f) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
 #pragma unroll
-  for (int l = 0; l < kLoads; ++l) {
-    const int lin = l * kThreads + tid;
-    as[(lin % kKS) * kAStride + lin / kKS] = r.a[l];
+    for (int j = 0; j < kCols; ++j) {
+      const int64_t f = f0 + lane + kWarp * j;
+      if (f < F) r[f] = v[j];
+    }
   }
-#pragma unroll
-  for (int l = 0; l < kLoads; ++l) xs[l * kThreads + tid] = r.x[l];
 }
 
-__global__ void __launch_bounds__(kThreads)
-psw_spmm_kernel(const int64_t* __restrict__ tile_ptr,
-                const int32_t* __restrict__ coords,
-                const float* __restrict__ tiles, const float* __restrict__ x,
-                float* __restrict__ out, int64_t x_rows, int64_t n_cols) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x;
-  const int ty = tid / (kF / kTN), tx = tid % (kF / kTN);
-  const int64_t db = blockIdx.x;
-  const int64_t f0 = (int64_t)blockIdx.y * kF;
-  const int64_t t0 = tile_ptr[db];
-  const int64_t steps = (tile_ptr[db + 1] - t0) * (kB / kKS);
-
-  // thread tid's total for its output (i, j):
-  // tot[(i * kTN + j) * kThreads + tid]
-  float* tot = smem + 2 * kStageFloats;
-  float acc[kTM][kTN];
+// tot <- the sum of entries [lo, hi) at the lane's columns: one partial per
+// run of entries from one source block, added to tot as the run ends.
+template <bool VEC>
+__device__ __forceinline__ void sum_entries(const Rows& p, int64_t lo,
+                                            int64_t hi, int64_t f0, int lane,
+                                            float tot[kCols]) {
+  float part[kCols];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      acc[i][j] = 0.f;
-      tot[(i * kTN + j) * kThreads + tid] = 0.f;
+  for (int j = 0; j < kCols; ++j) tot[j] = part[j] = 0.f;
+  int cur = -1;                           // the partial's source block
+  for (int64_t b = lo; b < hi; b += kWarp) {
+    const int n = (int)min((int64_t)kWarp, hi - b);
+    int c = 0;
+    float w = 0.f;
+    if (lane < n) {
+      c = p.col[b + lane];
+      w = p.val[b + lane];
     }
-
-  Slice r;
-  if (steps > 0) {
-    load_slice(r, tiles, coords, x, t0, 0, x_rows, n_cols, f0, tid);
-    store_slice(r, smem, tid);
-  }
-  __syncthreads();
-  for (int64_t s = 0; s < steps; ++s) {
-    const bool more = s + 1 < steps;
-    if (more) {
-      load_slice(r, tiles, coords, x, t0 + (s + 1) / (kB / kKS),
-                 (int)((s + 1) % (kB / kKS)) * kKS, x_rows, n_cols, f0, tid);
-    }
-    const float* as = smem + (s & 1) * kStageFloats;
-    const float* xs = as + kAFloats;
-#pragma unroll 4
-    for (int k = 0; k < kKS; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(
-          as + k * kAStride + ty * kTM);
-      const float4 a1 = *reinterpret_cast<const float4*>(
-          as + k * kAStride + ty * kTM + 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(
-          xs + k * kF + tx * kTN);
-      const float4 b1 = *reinterpret_cast<const float4*>(
-          xs + k * kF + tx * kTN + 4);
-      const float a[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[kTN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int k0 = 0; k0 < n; k0 += kUnroll) {
+      float v[kUnroll][kCols];
 #pragma unroll
-      for (int i = 0; i < kTM; ++i)
+      for (int u = 0; u < kUnroll; ++u) {
+        const int cu = __shfl_sync(kFull, c, (k0 + u) & (kWarp - 1));
+        if (k0 + u < n)
+          load_cols<VEC>(p.x + (int64_t)cu * p.F, f0, lane, p.F, v[u]);
+      }
+      // the sources and weights again, rather than held in registers
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if ((s + 1) % (kB / kKS) == 0) {  // the tile's last slice
+      for (int u = 0; u < kUnroll; ++u) {
+        const int cu = __shfl_sync(kFull, c, (k0 + u) & (kWarp - 1));
+        const float wu = __shfl_sync(kFull, w, (k0 + u) & (kWarp - 1));
+        if (k0 + u < n) {
+          const int blk = cu / p.block;
+          if (blk != cur) {
 #pragma unroll
-      for (int i = 0; i < kTM; ++i)
+            for (int j = 0; j < kCols; ++j) {
+              tot[j] += part[j];
+              part[j] = 0.f;
+            }
+            cur = blk;
+          }
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          tot[(i * kTN + j) * kThreads + tid] += acc[i][j];
-          acc[i][j] = 0.f;
+          for (int j = 0; j < kCols; ++j)
+            part[j] = fmaf(wu, v[u][j], part[j]);
         }
+      }
     }
-    if (more) store_slice(r, smem + ((s + 1) & 1) * kStageFloats, tid);
-    __syncthreads();
   }
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) tot[j] += part[j];
+}
 
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    float* o = out + (db * kB + ty * kTM + i) * n_cols;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int64_t f = f0 + tx * kTN + j;
-      if (f < n_cols) o[f] = tot[(i * kTN + j) * kThreads + tid];
-    }
+// Pass 1: warp u < n_chunks sums chunk u into scratch (the long work comes
+// first); warp n_chunks + i sums rows [i kRowsPerWarp, (i + 1)
+// kRowsPerWarp) (hubs are left to pass 2): fewer blocks to launch, while
+// one wave of blocks walking all rows balanced the power-law rows worse.
+template <bool VEC>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock, kMinBlocks)
+rows_kernel(Rows p) {
+  // pass 2 may be scheduled now; it waits for this grid's results
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int lane = threadIdx.x % kWarp;
+  const int64_t u =
+      (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int64_t f0 = (int64_t)blockIdx.y * kSlab;
+  float tot[kCols];
+  if (u < p.n_chunks) {
+    sum_entries<VEC>(p, p.chunks[2 * u], p.chunks[2 * u + 1], f0, lane, tot);
+    store_cols<VEC>(p.scratch + u * p.F, f0, lane, p.F, tot);
+    return;
   }
+  const int64_t r0 = (u - p.n_chunks) * kRowsPerWarp;
+  const int64_t r1 = min(r0 + kRowsPerWarp, p.n_rows);
+  for (int64_t r = r0; r < r1; ++r) {
+    const int64_t lo = p.row_ptr[r], hi = p.row_ptr[r + 1];
+    if (hi - lo > p.max_row) continue;    // a hub: written by pass 2
+    sum_entries<VEC>(p, lo, hi, f0, lane, tot);
+    store_cols<VEC>(p.out + r * p.F, f0, lane, p.F, tot);
+  }
+}
+
+// Pass 2: warp (h, 32-column slab) adds hub h's chunk totals in chunk
+// order, one column a lane, so kHubLoads loads are in flight at a few
+// registers each (the live tree's largest hub has ~256 chunks).
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+hubs_kernel(Rows p) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");   // pass 1 is done
+  const int lane = threadIdx.x % kWarp;
+  const int64_t h =
+      (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int64_t f = (int64_t)blockIdx.y * kWarp + lane;
+  if (h >= p.n_hubs || f >= p.F) return;
+  float tot = 0.f;
+  const int64_t end = p.hub_ptr[h + 1];
+  for (int64_t c0 = p.hub_ptr[h]; c0 < end; c0 += kHubLoads) {
+    float v[kHubLoads];
+#pragma unroll
+    for (int u = 0; u < kHubLoads; ++u)
+      v[u] = c0 + u < end ? __ldg(p.scratch + (c0 + u) * p.F + f) : 0.f;
+#pragma unroll
+    for (int u = 0; u < kHubLoads; ++u)
+      if (c0 + u < end) tot += v[u];
+  }
+  p.out[p.hub_rows[h] * p.F + f] = tot;
+}
+
+template <bool VEC>
+cudaError_t launch(const Rows& p, cudaStream_t stream) {
+  const long long slabs = (p.F + kSlab - 1) / kSlab;
+  const long long units =
+      p.n_chunks + (p.n_rows + kRowsPerWarp - 1) / kRowsPerWarp;
+  dim3 grid1((unsigned)((units + kWarpsPerBlock - 1) / kWarpsPerBlock),
+             (unsigned)slabs);
+  rows_kernel<VEC><<<grid1, kWarp * kWarpsPerBlock, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_hubs == 0) return err;
+  // launched behind pass 1 (programmatic dependent launch), so its launch
+  // latency hides under pass 1's tail
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((p.n_hubs + kWarpsPerBlock - 1) /
+                                kWarpsPerBlock),
+                     (unsigned)((p.F + kWarp - 1) / kWarp));
+  cfg.blockDim = dim3(kWarp * kWarpsPerBlock);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, hubs_kernel, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream` (the caller's current torch stream) and
-// returns cudaGetLastError() as an int: 0 when the launch was accepted.
-int psw_spmm_launch(const void* tile_ptr, const void* coords,
-                    const void* tiles, const void* x, void* out,
-                    long long n_dst_blocks, long long x_rows,
-                    long long n_cols, int device, void* stream) {
+// Launches both passes on `stream` (the caller's current torch stream) and
+// returns cudaGetLastError() as an int: 0 when the launches were accepted.
+int psw_spmm_launch(const void* row_ptr, const void* col, const void* val,
+                    const void* hub_rows, const void* hub_ptr,
+                    const void* chunks, const void* x, void* out,
+                    void* scratch, long long n_rows, long long n_chunks,
+                    long long n_hubs, long long n_cols, int block,
+                    int max_row, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n_dst_blocks <= 0 || n_cols <= 0) return 0;
-  const long long col_blocks = (n_cols + kF - 1) / kF;
-  if (col_blocks > 65535) return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(psw_spmm_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)n_dst_blocks, (unsigned)col_blocks);
-  psw_spmm_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      (const int64_t*)tile_ptr, (const int32_t*)coords, (const float*)tiles,
-      (const float*)x, (float*)out, x_rows, n_cols);
-  return (int)cudaGetLastError();
+  if (block <= 0 || max_row <= 0) return (int)cudaErrorInvalidValue;
+  if (n_rows <= 0 || n_cols <= 0) return 0;
+  const long long slabs = (n_cols + kWarp - 1) / kWarp;   // pass 2's
+  const long long blocks =
+      (n_chunks + (n_rows + kRowsPerWarp - 1) / kRowsPerWarp +
+       kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (slabs > 65535 || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  Rows p{(const int64_t*)row_ptr, (const int32_t*)col, (const float*)val,
+         (const int64_t*)hub_rows, (const int64_t*)hub_ptr,
+         (const int64_t*)chunks, (const float*)x, (float*)out,
+         (float*)scratch, n_rows, n_chunks, n_hubs, n_cols, block, max_row};
+  const bool vec = n_cols % kCols == 0 && (uintptr_t)x % 16 == 0 &&
+                   (uintptr_t)out % 16 == 0 && (uintptr_t)scratch % 16 == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(vec ? launch<true>(p, st) : launch<false>(p, st));
 }
-
-int psw_spmm_smem_bytes(void) { return kSmemBytes; }
 
 const char* psw_spmm_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

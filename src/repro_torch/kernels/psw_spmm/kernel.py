@@ -1,4 +1,4 @@
-"""Bind the Hopper PSW block-sparse SpMM kernel (csrc/psw_spmm.cu).
+"""Bind the Hopper PSW row-gather SpMM kernel (csrc/psw_spmm.cu).
 
 Built at first use by `kernels/common.py` (nvcc, sm_90a, into
 `build/kernels/psw_spmm_<hash>.so`) and loaded with ctypes; nothing here
@@ -12,11 +12,9 @@ import torch
 
 from .. import common
 
-__all__ = ["BLOCK", "SOURCE", "launch", "library_path", "load_library",
-           "smem_bytes"]
+__all__ = ["SOURCE", "launch", "library_path", "load_library"]
 
 NAME = "psw_spmm"
-BLOCK = 128          # the kernel's tile side
 SOURCE = Path(__file__).resolve().parent / "csrc" / "psw_spmm.cu"
 
 
@@ -26,11 +24,9 @@ def library_path() -> Path:
 
 def _bind(lib) -> None:
     fn = lib.psw_spmm_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
-        ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.psw_spmm_smem_bytes.argtypes = []
-    lib.psw_spmm_smem_bytes.restype = ctypes.c_int
 
 
 def load_library():
@@ -38,33 +34,34 @@ def load_library():
     return common.load_library(NAME, SOURCE, _bind)
 
 
-def smem_bytes() -> int:
-    """Dynamic shared memory a CTA of the kernel asks for."""
-    return int(load_library().psw_spmm_smem_bytes())
-
-
-def launch(tile_ptr: torch.Tensor, coords: torch.Tensor,
-           tiles: torch.Tensor, x: torch.Tensor, out: torch.Tensor) -> None:
-    """out (n_dst_blocks*128, F) <- the block-sparse product of the tiles
-    (T, 128, 128) at dst-sorted coords (T, 2) with x (n_src_blocks*128, F),
-    on the current stream of x's device. tile_ptr (n_dst_blocks + 1,) is
-    the CSR over coords' dst blocks; every coords[:, 1] must be below
-    n_src_blocks. Raises if the launch is refused."""
+def launch(layout, x: torch.Tensor, out: torch.Tensor,
+           scratch: torch.Tensor) -> None:
+    """out (n_rows, F) <- the product of a device-resident RowLayout with x
+    (n_src, F), on the current stream of x's device; scratch (n_chunks, F)
+    holds the hub rows' chunk totals. Every layout.col must be below
+    n_src. Raises if a launch is refused."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, not {dev}")
-    T = coords.shape[0]
-    n_dst_blocks = tile_ptr.shape[0] - 1
-    X, F = x.shape
+    n_rows, F = out.shape
+    nnz = layout.col.shape[0]
+    C, H = layout.chunks.shape[0], layout.hub_rows.shape[0]
     check = common.check_tensor
-    check(tile_ptr, "tile_ptr", torch.int64, (n_dst_blocks + 1,), dev)
-    check(coords, "coords", torch.int32, (T, 2), dev)
-    check(tiles, "tiles", torch.float32, (T, BLOCK, BLOCK), dev)
-    check(x, "x", torch.float32, (X, F), dev)
-    check(out, "out", torch.float32, (n_dst_blocks * BLOCK, F), dev)
+    check(layout.row_ptr, "row_ptr", torch.int64, (n_rows + 1,), dev)
+    check(layout.col, "col", torch.int32, (nnz,), dev)
+    check(layout.val, "val", torch.float32, (nnz,), dev)
+    check(layout.hub_rows, "hub_rows", torch.int64, (H,), dev)
+    check(layout.hub_ptr, "hub_ptr", torch.int64, (H + 1,), dev)
+    check(layout.chunks, "chunks", torch.int64, (C, 2), dev)
+    check(x, "x", torch.float32, (layout.n_src, F), dev)
+    check(out, "out", torch.float32, (layout.n_rows, F), dev)
+    check(scratch, "scratch", torch.float32, (C, F), dev)
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.psw_spmm_launch(tile_ptr.data_ptr(), coords.data_ptr(),
-                              tiles.data_ptr(), x.data_ptr(), out.data_ptr(),
-                              n_dst_blocks, X, F, dev.index, stream)
+    err = lib.psw_spmm_launch(
+        layout.row_ptr.data_ptr(), layout.col.data_ptr(),
+        layout.val.data_ptr(), layout.hub_rows.data_ptr(),
+        layout.hub_ptr.data_ptr(), layout.chunks.data_ptr(), x.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), n_rows, C, H, F, layout.block,
+        layout.max_row, dev.index, stream)
     common.raise_on_error(lib, NAME, err)

@@ -8,12 +8,13 @@ Tolerances: frontier_expand is exact (the panels hold small integers, so
 every float32 sum is exact whatever the order); segment_ell is bitwise (the
 kernel and the plain version add the same values in the same slot order);
 psw_spmm is rtol 1e-5, atol 1e-5 against the plain version (TestPswSpmm's
-tolerance: cuBLAS and index_add_ sum in another order) and 1e-4 against the
-edge oracle; the PSW sweep's segment-sum is bitwise equal across runs and
+tolerance: index_add_ sums in another order) and 1e-4 against the edge
+oracle, taken against the row's largest |value| on a 3,000-term hub row
+whose terms cancel, and bitwise equal across runs; the PSW sweep's segment-sum is bitwise equal across runs and
 within 1e-6 of a float64 sum; flash_attention is rtol/atol 2e-5 against its
 plain version in float32 (TestFlashAttention's tolerance: the fp32 SIMT
 kernel and cuBLAS sum in another order) and 2e-2 in bfloat16 (test_bf16's:
-the kernel rounds P to bf16 for P·V); embedding_bag is bitwise (both add
+the kernel rounds P to bf16 for P·V, on wgmma + TMA); embedding_bag is bitwise (both add
 w·row in slot order, rounded twice in fp32)."""
 import numpy as np
 import pytest
@@ -116,31 +117,60 @@ def test_segment_ell_never_reads_masked_slots(cuda):
     assert tuple(empty.shape) == (0, 3)
 
 
+def assert_rows_close(got, want, tol):
+    """|got - want| <= tol + tol * (the largest |want| of the row), in
+    float64: a hub row's float32 terms cancel to near 0 in some columns,
+    where no two summation orders meet an elementwise rtol."""
+    got, want = got.double(), want.double()
+    bound = tol + tol * want.abs().amax(1, keepdim=True)
+    ratio = float(((got - want).abs() / bound).max()) if got.numel() else 0.
+    assert ratio <= 1.0, ratio
+
+
 @pytest.mark.parametrize("f", [1, 100, 128, 1433])
 @pytest.mark.parametrize("hub", [False, True])
 def test_psw_spmm_matches_plain_and_edges(cuda, f, hub):
-    """hub=True puts every edge into the first 100 destinations: one dst
-    block holds all the tiles and the other blocks are empty."""
+    """hub=True puts every edge into the first 100 destinations (the other
+    rows are empty) and gives destination 3 a row of 3,000 distinct
+    sources, many chunks of ps.CHUNK entries. Repeat runs are bitwise
+    equal."""
     rng = np.random.default_rng(f + hub)
-    n, e = 1000, 12000
+    n, e = 4000, 12000
     src = rng.integers(0, n, e)
     dst = rng.integers(0, 100 if hub else n, e)
+    if hub:
+        src = np.concatenate([src, rng.choice(n, 3000, replace=False)])
+        dst = np.concatenate([dst, np.full(3000, 3)])
     x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32))
     before = ps.ops.launches
     got = ps.psw_spmm_edges(src, dst, x.to(cuda), n)
     torch.cuda.synchronize()
     assert ps.ops.launches == before + 1
-    assert torch.equal(got, ps.psw_spmm_edges(src, dst, x.to(cuda), n))
-    coords, tiles, nb = ps.prepare_blocks(src, dst, n, 128)
-    xp = torch.nn.functional.pad(x, (0, 0, 0, nb * 128 - n)).to(cuda)
-    plain = ps.psw_spmm_torch(torch.from_numpy(coords).to(cuda),
-                              torch.from_numpy(tiles).to(cuda), xp, nb, 128)
-    torch.testing.assert_close(got, plain[:n], rtol=1e-5, atol=1e-5)
-    edge = ps.spmm_dense_torch(torch.from_numpy(src).to(cuda),
-                               torch.from_numpy(dst).to(cuda), x.to(cuda), n)
-    torch.testing.assert_close(got, edge, rtol=1e-4, atol=1e-4)
+    for _ in range(3):
+        assert torch.equal(got, ps.psw_spmm_edges(src, dst, x.to(cuda), n))
+    lay = ps.prepare_rows(src, dst, n, device=cuda)
+    assert lay.row_ptr.device.type == "cuda"
     if hub:
-        assert not got[128:].any()
+        assert lay.chunks.shape[0] >= 3000 // (ps.CHUNK + 127)
+        assert 3 in lay.hub_rows.tolist()
+    plain = ps.psw_spmm_rows_torch(lay.row_ptr, lay.col, lay.val, x.to(cuda),
+                                   lay.block)
+    edge = ps.spmm_dense_torch(torch.from_numpy(src).to(cuda),
+                               torch.from_numpy(dst).to(cuda),
+                               x.to(cuda).double(), n)
+    rest = torch.ones(n, dtype=torch.bool, device=cuda)
+    if hub:                 # the 3,000-term row: rowwise, the rest as before
+        rest[3] = False
+        assert_rows_close(got[3:4], plain[3:4], 1e-5)
+        assert_rows_close(got[3:4], edge[3:4], 1e-4)
+    torch.testing.assert_close(got[rest], plain[rest], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[rest], edge[rest].float(), rtol=1e-4,
+                               atol=1e-4)
+    if hub:
+        assert not got[100:].any()
+    cpu = ps.prepare_rows(src, dst, n, device="cpu")
+    for name in ("row_ptr", "col", "val", "hub_rows", "hub_ptr", "chunks"):
+        assert torch.equal(getattr(lay, name).cpu(), getattr(cpu, name))
 
 
 @pytest.mark.parametrize("P,E,hub", [(1, 1 << 24, 1 << 24),
@@ -170,23 +200,44 @@ def test_segment_sum_sorted_is_deterministic(cuda, P, E, hub):
 
 
 def test_psw_spmm_empty_blocks_without_filler_tiles(cuda):
-    """The kernel writes zeros for a dst block with no tiles at all, and
-    asks for more than the 48 KiB of shared memory a launch gets unasked."""
-    assert ps_kernel.smem_bytes() > 48 * 1024
+    """The tile API on the card: its tiles are compacted into a row layout
+    on the device (equal to the CPU's), the kernel writes zeros for a dst
+    block with no tiles at all, and unsorted coords raise."""
     rng = np.random.default_rng(3)
     coords = torch.tensor([[1, 0], [1, 2], [3, 1]], dtype=torch.int32)
     tiles = torch.from_numpy(
         (rng.random((3, 128, 128)) < 0.01).astype(np.float32))
     x = torch.from_numpy(rng.normal(size=(3 * 128, 70)).astype(np.float32))
+    before = ps.ops.launches
     got = ps.psw_spmm(coords.to(cuda), tiles.to(cuda), x.to(cuda), 5, 128)
     torch.cuda.synchronize()
+    assert ps.ops.launches == before + 1
     want = ps.psw_spmm_torch(coords, tiles, x, 5, 128)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     for b in (0, 2, 4):
         assert not got[b * 128:(b + 1) * 128].any()
+    dev_lay = ps.compact_tiles(coords.to(cuda), tiles.to(cuda), 5, 128, 3)
+    cpu_lay = ps.compact_tiles(coords, tiles, 5, 128, 3)
+    for name in ("row_ptr", "col", "val"):
+        assert torch.equal(getattr(dev_lay, name).cpu(),
+                           getattr(cpu_lay, name))
     with pytest.raises(ValueError):      # not sorted by dst block
         ps.psw_spmm(coords.flip(0).to(cuda), tiles.to(cuda), x.to(cuda), 5,
                     128)
+
+
+def test_psw_spmm_refused_launch_raises(cuda):
+    """A launch the card refuses (grid.y > 65535 column slabs) raises, and
+    a row layout on another device than x does too."""
+    lay = ps.prepare_rows([0, 1], [1, 0], 2, device=cuda)
+    F = 128 * 65536
+    x = torch.zeros((2, F), device=cuda)
+    out = torch.empty((2, F), device=cuda)
+    scratch = torch.empty((0, F), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ps_kernel.launch(lay, x, out, scratch)
+    with pytest.raises(ValueError):
+        ps.psw_spmm_rows(lay, torch.zeros((2, 3)))
 
 
 def randn(shape, dev, seed, dtype=torch.float32):
@@ -198,7 +249,8 @@ def randn(shape, dev, seed, dtype=torch.float32):
 FA_SHAPES = [(2, 256, 256, 4, 2),      # S == T, GQA
              (1, 1000, 1000, 8, 1),    # ragged S == T, MQA
              (2, 128, 512, 4, 4),      # S < T
-             (1, 300, 77, 2, 1)]       # S > T, both ragged
+             (1, 300, 77, 2, 1),       # S > T, both ragged
+             (1, 200, 700, 4, 2)]      # S < T, S not a multiple of 128
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -224,7 +276,8 @@ def test_flash_attention_matches_plain(cuda, dtype, d, b, s, t, h, hkv,
 def test_flash_attention_narrow_heads_and_strided_inputs(cuda, dtype, d):
     """D below the kernel's 64/128 build widths, and q, k, v read through
     the strides of one packed projection (B, S, H + 2 Hkv, D), plus a view
-    whose base is off the 16-byte grid (copied by the wrapper)."""
+    whose base is off the 16-byte grid and k, v broadcast over the batch
+    (both copied by the wrapper)."""
     B, S, H, Hkv = 2, 200, 4, 2
     packed = randn((B, S, H + 2 * Hkv, d), cuda, d, dtype)
     q, k, v = packed[:, :, :H], packed[:, :, H:H + Hkv], packed[:, :, H + Hkv:]
@@ -238,6 +291,13 @@ def test_flash_attention_narrow_heads_and_strided_inputs(cuda, dtype, d):
     assert not fa_kernel.vector_ready(q_off)
     got = fa.flash_attention(q_off, k, v, False)
     want = fa.flash_attention_torch(q_off, k, v, False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # k and v broadcast over the batch (stride 0): no tensor map takes a
+    # zero stride, so the wrapper copies them
+    kb, vb = (t[:1].expand(B, -1, -1, -1) for t in (k, v))
+    assert not fa_kernel.vector_ready(kb)
+    got = fa.flash_attention(q, kb, vb, True)
+    want = fa.flash_attention_torch(q, kb, vb, True)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
