@@ -13,7 +13,8 @@ graph store read by multi-hop queries and analysed by PSW:
   1. bulk store: a LiveJournal-like power-law graph (SNAP soc-LiveJournal1:
      4,847,571 vertices, 68,993,773 edges; cut to 4M vertices and 56M edges,
      about 14 per vertex as there) in a `GraphPAL`, its dense plan resident
-     on the GPU; `two_hop_counts(dense="kernel")` on 256 seeds,
+     on the GPU (the kernel's compact layout built on the card, timed on its
+     own); `two_hop_counts(dense="kernel")` on 256 seeds,
      `khop(dense="kernel", k=3)` from 64 seeds, and `query.bfs` from one
      seed with the `dense="auto"` heuristic, each bitwise against the sparse
      host path;
@@ -21,8 +22,11 @@ graph store read by multi-hop queries and analysed by PSW:
      `two_hop_counts(dense="kernel")` on the live tree and on a pinned
      `read_view()`, bitwise against sparse;
   3. the frontier_expand kernel against its plain torch version at the main
-     path's shapes (B = 128 seed panels, B = 1 BFS frontiers): bitwise equal,
-     with times, the bound and a `torch.sparse.mm` yardstick;
+     path's shapes (B = 1: the largest BFS level; B = 64 and 128: two_hop's
+     hop-2 panels of 64 and 128 seeds; B = 128: a dense 30% 0/1 panel with
+     no zero row to skip): bitwise equal, with times, the compact-layout and
+     ELL bounds, the panel's non-zero rows and a `torch.sparse.mm`
+     yardstick;
   4. PSW analytics on the bulk store: `build_device_graph` (host build and
      upload timed apart), `pagerank_device` for 5 iterations in
      `dense_gather` and `psw_windows` (bitwise equal, and bitwise equal
@@ -166,21 +170,31 @@ def phase_small(core, dev, seed: int) -> None:
         f"{len(seeds)} seeds and bfs match the per-hop baselines")
 
 
-def phase_bulk(core, fe_ops, dev, args, clock):
+def phase_bulk(torch, core, fe_ops, dev, args, clock):
     log(f"phase 1 bulk store: {args.vertices} vertices, {args.edges} edges")
     src, dst = clock("generate", power_law_graph, args.vertices, args.edges,
                      seed=args.seed)
     g = clock("GraphPAL.from_edges", core.GraphPAL.from_edges, src, dst,
               n_partitions=16, max_id=args.vertices - 1)
     del src, dst
-    plan = clock("dense_plan (host build + upload)", core.dense_plan, g,
-                 "out", device=dev)
-    rows = int(plan.dst_ptr[-1])
+    plan = clock("dense_plan (host build + upload + layout)", core.dense_plan,
+                 g, "out", device=dev)
+    lay = clock("kernel_layout on the card (inside plan_to_device)",
+                fe_ops.kernel_layout, plan.idx, plan.mask, plan.row_dst,
+                plan.n_dst)
+    check(all(torch.equal(v, getattr(plan, k)) if torch.is_tensor(v)
+              else v == getattr(plan, k) for k, v in lay.items()),
+          "kernel_layout differs from the resident plan's")
+    del lay
+    counts = plan.edge_ptr[1:] - plan.edge_ptr[:-1]
+    rows = int((plan.row_dst < plan.n_dst).sum())
     log(f"  plan: {plan.n_edges} distinct edges, {rows} virtual rows "
-        f"(K={plan.k_slots}), {plan.idx.shape[0]} padded; "
-        f"{plan.heavy_dst.shape[0]} heavy destinations "
-        f"(> {plan.split_rows} rows) in {plan.chunks.shape[0]} chunks, "
-        f"longest {int((plan.dst_ptr[1:] - plan.dst_ptr[:-1]).max())} rows")
+        f"(K={plan.k_slots}), {plan.idx.shape[0]} padded; compact layout "
+        f"{plan.col.shape[0]} edges; {plan.heavy_dst.shape[0]} heavy "
+        f"destinations (> {plan.light_edges} edges, "
+        f"{int(counts[plan.heavy_dst].sum())} edges) in "
+        f"{plan.chunks.shape[0]} chunks of <= {plan.chunk_edges}, longest "
+        f"{int(counts.max())} edges")
     rng = np.random.default_rng(args.seed + 1)
     seeds = rng.choice(args.vertices, 256, replace=False)
 
@@ -275,84 +289,105 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 
 def kernel_vs_plain(torch, fe, kernel, plan, x, reps: int) -> dict:
-    """Kernel against the plain version on one panel: bitwise check, times,
-    the bound and the torch.sparse.mm yardstick."""
-    out = torch.empty((plan.n_dst, x.shape[1]), dtype=torch.float32,
-                      device=x.device)
-    scratch = torch.empty((plan.chunks.shape[0], x.shape[1]),
-                          dtype=torch.float32, device=x.device)
-    kernel.launch(plan, x, out, scratch)
+    """Kernel against the plain version on one panel: bitwise check (NaN
+    nowhere: the panels are 0/1), times, both bounds and the
+    torch.sparse.mm yardstick on the plan's own CSR."""
+    B = int(x.shape[1])
+    out = torch.empty((plan.n_dst, B), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((plan.chunks.shape[0], B), dtype=torch.float32,
+                          device=x.device)
+    flags = torch.empty((plan.n_src, -(-B // kernel.TILE) if B >= 32 else 0),
+                        dtype=torch.uint8, device=x.device)
+    kernel.launch(plan, x, out, scratch, flags)
     plain = fe.frontier_expand_torch(plan.idx, plan.mask, x, plan.row_dst,
                                      plan.n_dst)
     torch.cuda.synchronize()
     err = float((out - plain).abs().max())
     check(torch.equal(out, plain),
-          f"kernel != plain version at B={x.shape[1]} (max abs err {err})")
+          f"kernel != plain version at B={B} (max abs err {err})")
     del plain
-    ms = cuda_ms(torch, lambda: kernel.launch(plan, x, out, scratch), reps)
+    ms = cuda_ms(torch, lambda: kernel.launch(plan, x, out, scratch, flags),
+                 reps)
     plain_ms = cuda_ms(torch, lambda: fe.frontier_expand_torch(
         plan.idx, plan.mask, x, plan.row_dst, plan.n_dst), max(1, reps // 4))
 
     # yardstick: the same product as one cuSPARSE SpMM of the CSR adjacency
-    per_row = plan.mask.sum(1)
-    per_dst = torch.zeros(plan.n_dst + 1, dtype=torch.int64,
-                          device=x.device)
-    per_dst.index_add_(0, plan.row_dst.long(), per_row)
-    crow = torch.zeros(plan.n_dst + 1, dtype=torch.int64, device=x.device)
-    torch.cumsum(per_dst[:plan.n_dst], 0, out=crow[1:])
-    col = plan.idx[plan.mask].long()
+    # (the kernel's compact layout: col and edge_ptr)
+    col = plan.col.long()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")   # "sparse CSR is in beta"
         adj = torch.sparse_csr_tensor(
-            crow, col, torch.ones(col.shape[0], device=x.device),
+            plan.edge_ptr, col, torch.ones(col.shape[0], device=x.device),
             size=(plan.n_dst, plan.n_src))
     lib = torch.sparse.mm(adj, x)
     torch.cuda.synchronize()
-    check(torch.equal(lib, out), f"torch.sparse.mm != kernel at B={x.shape[1]}")
+    check(torch.equal(lib, out), f"torch.sparse.mm != kernel at B={B}")
     del lib
     library_ms = cuda_ms(torch, lambda: torch.sparse.mm(adj, x), reps)
     del adj, col
 
-    B = int(x.shape[1])
-    R, K = int(plan.dst_ptr[-1]), plan.k_slots
+    R, K = int((plan.row_dst < plan.n_dst).sum()), plan.k_slots
     E, M, N = plan.n_edges, plan.n_src, plan.n_dst
-    # each input read once, each output written once
-    bytes_once = R * K * 5 + (N + 1) * 8 + M * B * 4 + N * B * 4
+    nz = (x != 0).any(1)
+    nz_rows = int(nz.sum())
+    gathered = int(nz[plan.col.long()].sum())   # edges whose x row is read
+    xo = M * B * 4 + N * B * 4                   # x read once, out written
+    # each input read once, each output written once: the compact layout
+    bytes_once = E * 4 + (N + 1) * 8 + xo
+    # the same, counting the ELL plan (idx, mask) instead of the compact one
+    ell_bytes = R * K * 5 + (N + 1) * 8 + xo
     ops = E * B                       # one fp32 add per gathered element
-    bound_s = max(bytes_once / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S)
-    # what the gathers move: every edge's x row (a 32-byte sector at least)
-    gather_bytes = R * K * 5 + E * max(B * 4, 32) + N * B * 4
-    return {"B": B, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_s * 1e3,
-            "bound_by": ("bytes" if bytes_once / HBM_BYTES_PER_S
-                         >= ops / FP32_OPS_PER_S else "operations"),
-            "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
-            "bytes_once": bytes_once, "gather_bytes": gather_bytes,
-            "rows": R, "edges": E}
+    # what gathering every edge's x row moves (a 32-byte sector at least)
+    gather_bytes = E * 4 + (N + 1) * 8 + E * max(B * 4, 32) + N * B * 4
+    res = {"B": B, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "nonzero_rows": nz_rows,
+           "gathered_rows": gathered,
+           **bound(bytes_once, ops, FP32_OPS_PER_S),
+           "ell_bound_ms": max(ell_bytes / HBM_BYTES_PER_S,
+                               ops / FP32_OPS_PER_S) * 1e3,
+           "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+           "gather_bytes": gather_bytes, "rows": R, "edges": E}
+    return res
 
 
-def phase_kernel(torch, core, fe, kernel, g, seeds, frontier, dev, reps):
+def phase_kernel(torch, core, fe, kernel, g, seeds, frontier, dev, reps,
+                 seed):
+    """The kernel against its plain version at the main path's shapes: the
+    largest BFS level (B = 1), two_hop's hop-2 panels of 64 and 128 seeds,
+    and a dense 30% 0/1 panel at B = 128 (nothing to skip)."""
     log("phase 3 kernel against plain version at the main path's shapes")
     plan = core.dense_plan(g, "out", device=dev)
     iv = g.intervals
     M = plan.n_src
-    si = torch.from_numpy(np.asarray(iv.to_internal(seeds[:128]),
-                                     np.int64)).to(dev)
-    x = torch.zeros((M, 128), dtype=torch.float32, device=dev)
-    x[si, torch.arange(128, device=dev)] = 1.0
-    hop1 = fe.frontier_expand_counts(plan, x)
-    panel = (hop1 > 0).to(torch.float32)       # two_hop's hop-2 input
-    del x, hop1
-    wide = kernel_vs_plain(torch, fe, kernel, plan, panel, reps)
-    del panel
-    log("  B=128: " + json.dumps(wide))
+    res = {}
     x1 = torch.zeros((M, 1), dtype=torch.float32, device=dev)
     fi = torch.from_numpy(np.asarray(iv.to_internal(frontier), np.int64))
     x1[fi.to(dev), 0] = 1.0                    # the largest BFS level
-    narrow = kernel_vs_plain(torch, fe, kernel, plan, x1, reps)
+    res["bfs"] = kernel_vs_plain(torch, fe, kernel, plan, x1, reps)
+    del x1
     log(f"  B=1 ({frontier.shape[0]} frontier vertices): "
-        + json.dumps(narrow))
-    return wide, narrow
+        + json.dumps(res["bfs"]))
+    for B in (64, 128):
+        si = torch.from_numpy(np.asarray(iv.to_internal(seeds[:B]),
+                                         np.int64)).to(dev)
+        x = torch.zeros((M, B), dtype=torch.float32, device=dev)
+        x[si, torch.arange(B, device=dev)] = 1.0
+        hop1 = fe.frontier_expand_counts(plan, x)
+        panel = (hop1 > 0).to(torch.float32)   # two_hop's hop-2 input
+        del x, hop1
+        res[f"hop2_{B}"] = kernel_vs_plain(torch, fe, kernel, plan, panel,
+                                           reps)
+        del panel
+        log(f"  B={B} hop-2 panel: " + json.dumps(res[f"hop2_{B}"]))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dense = (torch.rand((M, 128), generator=gen, device=dev) < 0.3).to(
+        torch.float32)
+    res["dense"] = kernel_vs_plain(torch, fe, kernel, plan, dense,
+                                   max(2, reps // 4))
+    del dense
+    log("  B=128 dense 30% panel: " + json.dumps(res["dense"]))
+    return res
 
 
 DG_FIELDS = ("src", "dst_local", "mask", "outdeg", "send_idx", "edge_owner",
@@ -539,6 +574,15 @@ def row_tolerance(got, want, rtol: float, atol: float):
     return ratio <= 1.0, float(err.max()), ratio
 
 
+def fetched_row_bytes(idx, mask, x) -> int:
+    """Bytes device memory moves to gather x's row of every live slot: it
+    moves 64-byte pieces, so a row costs every piece it spans (a 400-byte
+    row at a 16-byte-aligned offset spans seven)."""
+    row = x.shape[1] * 4
+    start = idx[mask].long() * row + x.data_ptr() % 64
+    return int(((start + row - 1) // 64 - start // 64 + 1).sum()) * 64
+
+
 def segment_ell_vs_plain(torch, se, se_kernel, ell, reps: int) -> dict:
     idx, mask, x, kept = ell
     N, K = idx.shape
@@ -578,6 +622,8 @@ def segment_ell_vs_plain(torch, se, se_kernel, ell, reps: int) -> dict:
             "bound_by": ("bytes" if bytes_once / HBM_BYTES_PER_S
                          >= ops / FP32_OPS_PER_S else "operations"),
             "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+            "gather64_bound_ms": (N * K * 5 + fetched_row_bytes(idx, mask, x)
+                                  + N * F * 4) / HBM_BYTES_PER_S * 1e3,
             "bytes_once": bytes_once, "gather_bytes": gather_bytes}
 
 
@@ -1090,17 +1136,26 @@ def main() -> None:
     phase_small(core, dev, args.seed)
 
     torch.cuda.reset_peak_memory_stats()
+    widths, counts = {}, fe.frontier_expand_counts
+
+    def counted(plan, x):                      # calls by panel width B
+        widths[int(x.shape[1])] = widths.get(int(x.shape[1]), 0) + 1
+        return counts(plan, x)
+
+    fe.frontier_expand_counts = counted        # what multihop imports
     fe_ops.launches = 0                        # the main path starts here
-    g, seeds, frontier = phase_bulk(core, fe_ops, dev, args, clock)
+    g, seeds, frontier = phase_bulk(torch, core, fe_ops, dev, args, clock)
     t = phase_live(core, fe_ops, dev, args, clock)
     launches = fe_ops.launches                 # ...and ends here
+    fe.frontier_expand_counts = counts
     check(launches > 0, "the main path launched no frontier_expand kernel")
-    log(f"main path: {launches} frontier_expand launches, peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+    log(f"main path: {launches} frontier_expand launches (calls by panel "
+        f"width: {json.dumps(widths)}), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         + host_memory())
 
-    wide, narrow = phase_kernel(torch, core, fe, kernel, g, seeds, frontier,
-                                dev, args.reps)
+    fe_res = phase_kernel(torch, core, fe, kernel, g, seeds, frontier, dev,
+                          args.reps, args.seed + 5)
     phase_psw(torch, core, g, dev, args, clock)
     phase_snapshots(torch, core, t, dev, args, clock)
     del t
@@ -1132,7 +1187,7 @@ def main() -> None:
                      "src/repro_torch/kernels/frontier_expand/csrc/"
                      "frontier_expand.cu",
                      "src/repro/kernels/frontier_expand/frontier_expand.py:52",
-                     launches, wide, [wide, narrow]),
+                     launches, fe_res["hop2_128"], list(fe_res.values())),
         kernel_entry("segment_ell",
                      "src/repro_torch/kernels/segment_ell/csrc/"
                      "segment_ell.cu",

@@ -17,29 +17,15 @@ oracle. `torch.sparse.mm` on the same CSR is timed beside them. Run from
 the repository root; prints one line per (graph, variant).
 """
 import argparse
-import ctypes
 import os
-import re
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
+sys.path[:0] = [os.path.join(ROOT, "src"), ROOT, os.path.join(ROOT,
+                                                              "scripts")]
 
 CONSTANTS = ("kUnroll", "kMinBlocks", "kWarpsPerBlock", "kHubLoads",
              "kRowsPerWarp")
-
-
-def parse(variant: str) -> dict:
-    if variant == "base":
-        return {}
-    out = {}
-    for pair in variant.split(","):
-        name, value = pair.split("=")
-        if name not in CONSTANTS + ("CHUNK",):
-            raise SystemExit(f"unknown constant {name}")
-        out[name] = int(value)
-    return out
 
 
 def main() -> None:
@@ -52,45 +38,13 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     import chip_smoke as cs
+    import kernel_variants
     import repro_torch.core as core
-    from repro_torch.kernels import common
     from repro_torch.kernels import psw_spmm as ps
     from repro_torch.kernels.psw_spmm import kernel as ps_kernel
 
-    source = ps_kernel.SOURCE.read_text()
-    out_dir = os.path.join(ROOT, "build", "psw_variants")
-    os.makedirs(out_dir, exist_ok=True)
-    nvcc = common._nvcc()
-    jobs = []
-    for i, variant in enumerate(args.variants):
-        consts = parse(variant)
-        text = source
-        for name in CONSTANTS:
-            if name in consts:
-                text, n = re.subn(rf"constexpr int {name} = \d+;",
-                                  f"constexpr int {name} = {consts[name]};",
-                                  text)
-                if n != 1:
-                    raise SystemExit(f"{name} not found in {ps_kernel.SOURCE}")
-        src = os.path.join(out_dir, f"v{i}.cu")
-        with open(src, "w") as fh:
-            fh.write(text)
-        lib = os.path.join(out_dir, f"v{i}.so")
-        jobs.append((variant, consts, lib, subprocess.Popen(
-            [nvcc, *common.NVCC_FLAGS, "-o", lib, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = []
-    for variant, consts, lib, proc in jobs:
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed on {variant}:\n{log}")
-        regs = [ln.split(":")[-1].strip() for ln in log.splitlines()
-                if "registers" in ln or "spill stores" in ln]
-        print(f"{variant}: {regs}", flush=True)
-        handle = ctypes.CDLL(lib)
-        ps_kernel._bind(handle)
-        libs.append((variant, consts, handle))
-
+    libs = kernel_variants.build(ps_kernel.SOURCE, args.variants, CONSTANTS,
+                                 ("CHUNK",), "psw_variants", ps_kernel._bind)
     dev = torch.device("cuda:0")
     tree = cs.live_tree(core, 32_768, 458_752, 11)
     s2, d2 = tree.to_coo()

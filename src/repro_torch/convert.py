@@ -9,8 +9,9 @@ Keys: `intervals.{n_partitions,interval_len}`;
 `partitions.{i}.{interval,src,dst,etype,src_vertices,src_ptr,dst_perm,
 dst_vertices,dst_ptr}` plus optional `partitions.{i}.dead` and
 `partitions.{i}.columns.{name}`; `vertex_columns.{name}.{i}`. A plan's keys
-are the reference's field names; the port's kernel layout (`dst_ptr` and
-the heavy-destination chunks) is derived from `row_dst`.
+are the reference's field names; the port's kernel layout (`col`,
+`edge_ptr` and the heavy-destination chunks) is built from `idx`, `mask`
+and `row_dst` on the target device.
 
 A PSW `DeviceGraph` travels the same way (`device_graph_to_arrays` /
 `device_graph_from_arrays`): the reference's field names as keys, its jnp
@@ -33,8 +34,7 @@ import torch
 
 from .core.pal import EdgePartition, GraphPAL, IntervalMap
 from .core.psw import DeviceGraph, segment_ptr
-from .kernels.frontier_expand.ops import (FrontierPlan, _kernel_layout,
-                                         plan_to_device)
+from .kernels.frontier_expand.ops import FrontierPlan, plan_to_device
 from .models.transformer import MOE_TODO, TransformerConfig, _layer_shapes
 
 __all__ = ["device_graph_from_arrays", "device_graph_to_arrays",
@@ -106,7 +106,7 @@ def plan_from_arrays(d: Dict[str, np.ndarray], device) -> FrontierPlan:
     idx = np.asarray(d["idx"], np.int32)
     mask = np.asarray(d["mask"], bool)
     row_dst = np.asarray(d["row_dst"], np.int32)
-    # the kernel gathers x[idx] unchecked and walks rows by destination
+    # the kernel gathers x[col] unchecked and walks edges by destination
     live = idx[mask]
     if (idx.shape != mask.shape or idx.shape[0] != row_dst.shape[0]
             or (live.size and (live.min() < 0 or live.max() >= n_src))
@@ -116,7 +116,7 @@ def plan_from_arrays(d: Dict[str, np.ndarray], device) -> FrontierPlan:
         raise ValueError("plan arrays are inconsistent: idx/mask/row_dst "
                          "shapes, source ids or destination order")
     plan = FrontierPlan(idx, mask, row_dst, n_src, n_dst, int(d["n_edges"]),
-                        int(d["k_slots"]), **_kernel_layout(row_dst, n_dst))
+                        int(d["k_slots"]))
     return plan_to_device(plan, device)
 
 

@@ -14,9 +14,10 @@ import torch
 
 from .. import common
 
-__all__ = ["SOURCE", "launch", "library_path", "load_library"]
+__all__ = ["SOURCE", "TILE", "launch", "library_path", "load_library"]
 
 NAME = "frontier_expand"
+TILE = 128          # columns per warp and per non-zero flag (kTile in the .cu)
 SOURCE = Path(__file__).resolve().parent / "csrc" / "frontier_expand.cu"
 
 
@@ -26,8 +27,8 @@ def library_path() -> Path:
 
 def _bind(lib) -> None:
     fn = lib.frontier_expand_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 3 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -36,34 +37,36 @@ def load_library():
     return common.load_library(NAME, SOURCE, _bind)
 
 
-def launch(plan, x: torch.Tensor, out: torch.Tensor,
-           scratch: torch.Tensor) -> None:
+def launch(plan, x: torch.Tensor, out: torch.Tensor, scratch: torch.Tensor,
+           flags: torch.Tensor, lib=None) -> None:
     """out (n_dst, B) <- the frontier expansion of x (n_src, B) over a
-    device-resident FrontierPlan, on the current stream of x's device;
-    scratch (n_chunks, B) holds the heavy destinations' chunk partials.
-    Raises if a launch is refused."""
+    device-resident FrontierPlan's compact layout, on the current stream of
+    x's device; scratch (n_chunks, B) holds the heavy destinations' chunk
+    partials, flags (n_src, ceil(B / TILE)) uint8 the non-zero tiles of x
+    when B >= 32 (else (n_src, 0)). `lib` is another build of the source
+    (scripts/frontier_expand_variants.py). Raises if a launch is refused."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, not {dev}")
-    R, K = plan.idx.shape
     n_dst, B = out.shape
-    C, H = plan.chunks.shape[0], plan.heavy_dst.shape[0]
+    E, C, H = plan.col.shape[0], plan.chunks.shape[0], plan.heavy_dst.shape[0]
+    tiles = common.cdiv(B, TILE) if B >= 32 else 0
     check = common.check_tensor
-    check(plan.idx, "idx", torch.int32, (R, K), dev)
-    check(plan.mask, "mask", torch.bool, (R, K), dev)
-    check(plan.dst_ptr, "dst_ptr", torch.int64, (n_dst + 1,), dev)
+    check(plan.col, "col", torch.int32, (E,), dev)
+    check(plan.edge_ptr, "edge_ptr", torch.int64, (plan.n_dst + 1,), dev)
     check(plan.chunks, "chunks", torch.int64, (C, 2), dev)
     check(plan.heavy_dst, "heavy_dst", torch.int64, (H,), dev)
     check(plan.heavy_ptr, "heavy_ptr", torch.int64, (H + 1,), dev)
     check(x, "x", torch.float32, (plan.n_src, B), dev)
     check(out, "out", torch.float32, (plan.n_dst, B), dev)
     check(scratch, "scratch", torch.float32, (C, B), dev)
-    lib = load_library()
+    check(flags, "flags", torch.uint8, (plan.n_src, tiles), dev)
+    lib = lib or load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.frontier_expand_launch(
-        plan.idx.data_ptr(), plan.mask.data_ptr(), plan.dst_ptr.data_ptr(),
+        plan.col.data_ptr(), plan.edge_ptr.data_ptr(),
         plan.chunks.data_ptr(), plan.heavy_dst.data_ptr(),
         plan.heavy_ptr.data_ptr(), x.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), n_dst, C, H, K, plan.split_rows, B, dev.index,
-        stream)
+        scratch.data_ptr(), flags.data_ptr(), plan.n_src, n_dst, C, H,
+        plan.light_edges, B, dev.index, stream)
     common.raise_on_error(lib, NAME, err)

@@ -1,13 +1,16 @@
 """Plan builder + wrapper for the frontier-expansion kernel.
 
 Port of the reference `repro/kernels/frontier_expand/ops.py`. The plan
-builder is its host numpy copy, plus `dst_ptr`: the CSR over the
-destination-sorted rows that lets the CUDA kernel give each destination a
-contiguous row range instead of segment-summing per-row results. A
-destination with more than `split_rows` rows (a power-law hub) is "heavy":
-`chunks` cuts its rows into pieces of at most `split_rows` rows, which the
-kernel sums in parallel and then reduces per destination (`heavy_dst`,
-`heavy_ptr`: the CSR from heavy destinations to their chunks).
+builder is its host numpy copy: the virtual-row ELL that the plain torch
+version reads. `plan_to_device` moves it to a device and builds there, with
+torch ops, the compact layout the CUDA kernel reads instead
+(`kernel_layout`): `col`, the live slots' sources in row-major order, so
+each destination's edges are contiguous and in slot order, and `edge_ptr`,
+the CSR over them. A destination with more than `light_edges` edges (a
+power-law hub) is "heavy": `chunks` cuts its edges into pieces of at most
+`chunk_edges`, which the kernel sums in parallel and then reduces per
+destination (`heavy_dst`, `heavy_ptr`: the CSR from heavy destinations to
+their chunks).
 
 Virtual-row ELL: the deduplicated edge set, grouped by destination, is
 split into rows of at most `k_slots` sources — a destination of degree d
@@ -27,16 +30,20 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..common import round_up
+from ..common import cdiv, round_up
 from . import kernel as _kernel
 from .ref import frontier_expand_torch
 
 __all__ = ["FrontierPlan", "build_frontier_plan", "frontier_expand_counts",
-           "plan_to_device"]
+           "hub_chunks", "kernel_layout", "plan_to_device"]
 
-# rows one kernel work item walks at most; longer destinations are split
-# (a power-law hub would otherwise hold the whole launch behind one warp)
-SPLIT_ROWS = 8
+# A kernel warp walks 32 consecutive destinations or one hub chunk: a
+# destination with more than LIGHT_EDGES edges is cut into chunks of at most
+# CHUNK_EDGES, so no warp walks more than 32 * LIGHT_EDGES = CHUNK_EDGES
+# edges and a power-law hub cannot hold the launch behind one warp. Chosen
+# on the H100 (scripts/frontier_expand_variants.py).
+LIGHT_EDGES = 32
+CHUNK_EDGES = 1024
 
 # kernel launches made by frontier_expand_counts: read and reset it as
 # `ops.launches` (a run zeroes it, drives its path, and reads it back to
@@ -48,7 +55,7 @@ launches = 0
 class FrontierPlan:
     """Layout of one store's deduplicated edge set (one direction): numpy
     arrays from `build_frontier_plan`, torch tensors after
-    `plan_to_device`."""
+    `plan_to_device`, which adds the kernel's compact layout."""
 
     idx: np.ndarray       # (R, K) int32 source id per slot
     mask: np.ndarray      # (R, K) bool, True where a slot holds an edge
@@ -57,34 +64,55 @@ class FrontierPlan:
     n_dst: int
     n_edges: int          # deduplicated edge count packed into the plan
     k_slots: int
-    # kernel layout (port only), see `_kernel_layout`
-    dst_ptr: np.ndarray = None    # (n_dst + 1,) int64: rows of d are
-    #                               dst_ptr[d]:dst_ptr[d + 1]
-    heavy_dst: np.ndarray = None  # (H,) int64 destinations > split_rows rows
-    heavy_ptr: np.ndarray = None  # (H + 1,) int64 CSR into chunks
-    chunks: np.ndarray = None     # (C, 2) int64 [row begin, row end)
-    split_rows: int = SPLIT_ROWS
+    # kernel layout (port only, on the device), see `kernel_layout`
+    col: torch.Tensor = None        # (E,) int32 sources, row-major
+    edge_ptr: torch.Tensor = None   # (n_dst + 1,) int64: edges of d are
+    #                                 col[edge_ptr[d]:edge_ptr[d + 1]]
+    heavy_dst: torch.Tensor = None  # (H,) int64 destinations > light_edges
+    heavy_ptr: torch.Tensor = None  # (H + 1,) int64 CSR into chunks
+    chunks: torch.Tensor = None     # (C, 2) int64 [edge begin, edge end)
+    light_edges: int = LIGHT_EDGES
+    chunk_edges: int = CHUNK_EDGES
 
 
-def _kernel_layout(row_dst: np.ndarray, n_dst: int) -> dict:
-    """dst_ptr over the destination-sorted rows, and the heavy
-    destinations' row ranges cut into chunks of at most SPLIT_ROWS."""
-    split_rows = SPLIT_ROWS
-    dst_ptr = np.zeros(n_dst + 1, np.int64)
-    np.cumsum(np.bincount(row_dst, minlength=n_dst + 1)[:n_dst],
-              out=dst_ptr[1:])
-    rows = np.diff(dst_ptr)
-    heavy = np.flatnonzero(rows > split_rows)
-    n_chunks = -(-rows[heavy] // split_rows)
-    heavy_ptr = np.zeros(heavy.shape[0] + 1, np.int64)
-    np.cumsum(n_chunks, out=heavy_ptr[1:])
-    owner = np.repeat(np.arange(heavy.shape[0]), n_chunks)
-    begin = (dst_ptr[heavy][owner]
-             + (np.arange(heavy_ptr[-1]) - heavy_ptr[owner]) * split_rows)
-    end = np.minimum(begin + split_rows, dst_ptr[heavy + 1][owner])
-    return {"dst_ptr": dst_ptr, "heavy_dst": heavy.astype(np.int64),
-            "heavy_ptr": heavy_ptr,
-            "chunks": np.stack([begin, end], 1).astype(np.int64)}
+def kernel_layout(idx: torch.Tensor, mask: torch.Tensor,
+                  row_dst: torch.Tensor, n_dst: int,
+                  light_edges: int = LIGHT_EDGES,
+                  chunk_edges: int = CHUNK_EDGES) -> dict:
+    """The kernel's compact destination CSR, built with torch ops on the
+    plan tensors' device: `col` and `edge_ptr` from the live slots, then
+    `hub_chunks`."""
+    dev = idx.device
+    col = idx[mask]                       # row-major: slot order per row
+    row_end = torch.zeros(idx.shape[0] + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(mask.sum(1), 0, out=row_end[1:])
+    first_row = torch.searchsorted(
+        row_dst, torch.arange(n_dst + 1, dtype=row_dst.dtype, device=dev))
+    edge_ptr = row_end[first_row]
+    return {"col": col, "edge_ptr": edge_ptr,
+            **hub_chunks(edge_ptr, light_edges, chunk_edges)}
+
+
+def hub_chunks(edge_ptr: torch.Tensor, light_edges: int = LIGHT_EDGES,
+               chunk_edges: int = CHUNK_EDGES) -> dict:
+    """The destinations with more than `light_edges` edges, and their edge
+    ranges cut into chunks of at most `chunk_edges`, on edge_ptr's
+    device."""
+    dev = edge_ptr.device
+    counts = edge_ptr[1:] - edge_ptr[:-1]
+    heavy = torch.nonzero(counts > light_edges).squeeze(1)
+    n_chunks = (counts[heavy] + chunk_edges - 1) // chunk_edges
+    heavy_ptr = torch.zeros(heavy.shape[0] + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(n_chunks, 0, out=heavy_ptr[1:])
+    owner = torch.repeat_interleave(
+        torch.arange(heavy.shape[0], device=dev), n_chunks)
+    begin = (edge_ptr[heavy][owner]
+             + (torch.arange(owner.shape[0], device=dev) - heavy_ptr[owner])
+             * chunk_edges)
+    end = torch.minimum(begin + chunk_edges, edge_ptr[heavy + 1][owner])
+    return {"heavy_dst": heavy, "heavy_ptr": heavy_ptr,
+            "chunks": torch.stack([begin, end], 1),
+            "light_edges": light_edges, "chunk_edges": chunk_edges}
 
 
 def build_frontier_plan(src, dst, n_src: int, n_dst: int,
@@ -100,9 +128,7 @@ def build_frontier_plan(src, dst, n_src: int, n_dst: int,
         return FrontierPlan(np.zeros((128, k_slots), np.int32),
                             np.zeros((128, k_slots), bool),
                             np.full(128, n_dst, np.int32),
-                            int(n_src), int(n_dst), 0, k_slots,
-                            **_kernel_layout(np.full(128, n_dst, np.int32),
-                                             int(n_dst)))
+                            int(n_src), int(n_dst), 0, k_slots)
     d = keys // n_src
     s = keys % n_src
     newgrp = np.empty(E, bool)
@@ -125,20 +151,19 @@ def build_frontier_plan(src, dst, n_src: int, n_dst: int,
     row_dst = np.full(Rp, n_dst, np.int32)
     row_dst[:R] = np.repeat(d[gstart], vrows)
     return FrontierPlan(idx, mask, row_dst, int(n_src), int(n_dst), int(E),
-                        k_slots, **_kernel_layout(row_dst, int(n_dst)))
+                        k_slots)
 
 
 def plan_to_device(plan: FrontierPlan, device) -> FrontierPlan:
-    """The plan with its arrays as tensors on `device`."""
+    """The plan's reference arrays as tensors on `device`, and the kernel's
+    compact layout built from them there (`kernel_layout`)."""
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+    idx, mask = put(plan.idx, np.int32), put(plan.mask, bool)
+    row_dst = put(plan.row_dst, np.int32)
     return dataclasses.replace(
-        plan, idx=put(plan.idx, np.int32), mask=put(plan.mask, bool),
-        row_dst=put(plan.row_dst, np.int32),
-        dst_ptr=put(plan.dst_ptr, np.int64),
-        heavy_dst=put(plan.heavy_dst, np.int64),
-        heavy_ptr=put(plan.heavy_ptr, np.int64),
-        chunks=put(plan.chunks, np.int64))
+        plan, idx=idx, mask=mask, row_dst=row_dst,
+        **kernel_layout(idx, mask, row_dst, plan.n_dst))
 
 
 def frontier_expand_counts(plan: FrontierPlan, x: torch.Tensor) -> torch.Tensor:
@@ -166,7 +191,10 @@ def frontier_expand_counts(plan: FrontierPlan, x: torch.Tensor) -> torch.Tensor:
         if out.numel():
             scratch = torch.empty((plan.chunks.shape[0], B),
                                   dtype=torch.float32, device=x.device)
-            _kernel.launch(plan, x, out, scratch)
+            flags = torch.empty(
+                (plan.n_src, cdiv(B, _kernel.TILE) if B >= 32 else 0),
+                dtype=torch.uint8, device=x.device)
+            _kernel.launch(plan, x, out, scratch, flags)
             launches += 1
         return out
     if x.device.type != "cpu":

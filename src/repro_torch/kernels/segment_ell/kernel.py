@@ -36,10 +36,11 @@ def load_library():
 
 
 def launch(idx: torch.Tensor, mask: torch.Tensor, x: torch.Tensor,
-           out: torch.Tensor) -> None:
+           out: torch.Tensor, lib=None) -> None:
     """out (N, F) <- Σ_k mask·x[idx] over idx/mask (N, K) and x (M, F), on
     the current stream of x's device. The live slots' idx must lie in
-    [0, M). Raises if the launch is refused."""
+    [0, M). `lib` is another build of the source
+    (scripts/segment_ell_variants.py). Raises if the launch is refused."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, not {dev}")
@@ -50,7 +51,7 @@ def launch(idx: torch.Tensor, mask: torch.Tensor, x: torch.Tensor,
     check(mask, "mask", torch.bool, (N, K), dev)
     check(x, "x", torch.float32, (M, F), dev)
     check(out, "out", torch.float32, (N, F), dev)
-    lib = load_library()
+    lib = lib or load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.segment_ell_launch(idx.data_ptr(), mask.data_ptr(),
                                  x.data_ptr(), out.data_ptr(), N, K, F,

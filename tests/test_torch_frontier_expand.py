@@ -4,6 +4,8 @@ array for array, and counts bitwise equal to the reference jnp path
 (`use_kernel=False`; the Pallas interpret path no longer traces under
 jax 0.9), the numpy oracle and a dense A @ x. Exact tolerance: the inputs
 are small integers, so every sum is exact in float32."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -82,44 +84,135 @@ def test_counts_bitwise_equal_reference(kind, b):
 
 
 def emulate_kernel(plan, x: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel's work split in torch: light destinations summed
-    whole, heavy destinations as the sum of their chunks' partials."""
+    """The CUDA kernel's walk in torch: each light destination sums its CSR
+    range col[edge_ptr[d]:edge_ptr[d + 1]] in edge order, a heavy one the
+    partials of its chunks; for B >= 32 an edge whose source's 128-column
+    tile holds only +-0 is skipped (never read), as the kernel's flags do."""
     n, b = plan.n_dst, x.shape[1]
-    rows = plan.dst_ptr[1:] - plan.dst_ptr[:-1]
-    full = frontier_expand_torch(plan.idx, plan.mask, x, plan.row_dst, n)
+    col = plan.col.long()
+    keep = torch.ones((x.shape[0], b), dtype=torch.bool)
+    if b >= 32:
+        for t0 in range(0, b, 128):
+            nz = (x[:, t0:t0 + 128] != 0).any(1, keepdim=True)   # NaN: True
+            keep[:, t0:t0 + 128] = nz
+
+    def walk(e0: int, e1: int) -> torch.Tensor:
+        acc = torch.zeros(b)
+        for s in col[e0:e1].tolist():
+            acc = torch.where(keep[s], acc + x[s], acc)
+        return acc
+
+    counts = plan.edge_ptr[1:] - plan.edge_ptr[:-1]
     out = torch.full((n, b), float("nan"))
-    light = rows <= plan.split_rows
-    out[light] = full[light]
-    parts = []
-    for r0, r1 in plan.chunks.tolist():
-        parts.append(frontier_expand_torch(
-            plan.idx[r0:r1], plan.mask[r0:r1], x,
-            torch.zeros(r1 - r0, dtype=torch.int32), 1)[0])
+    for d in torch.nonzero(counts <= plan.light_edges).squeeze(1).tolist():
+        out[d] = walk(*plan.edge_ptr[d:d + 2].tolist())
+    parts = [walk(e0, e1) for e0, e1 in plan.chunks.tolist()]
     for h, d in enumerate(plan.heavy_dst.tolist()):
         lo, hi = plan.heavy_ptr[h:h + 2].tolist()
         out[d] = torch.stack(parts[lo:hi]).sum(0)
     return out
 
 
+def check_compact_layout(plan, ref) -> None:
+    """The kernel layout against the reference plan's idx/mask/row_dst:
+    every destination's edges in slot order, and hub chunks that cover each
+    heavy destination's edges once, in order, at most chunk_edges each."""
+    n = ref.n_dst
+    col, ptr = plan.col.numpy(), plan.edge_ptr.numpy()
+    assert col.dtype == np.int32 and ptr.dtype == np.int64
+    assert ptr[0] == 0 and ptr[-1] == ref.n_edges == col.shape[0]
+    idx, mask, row_dst = (np.asarray(a) for a in (ref.idx, ref.mask,
+                                                  ref.row_dst))
+    for d in range(n):
+        rows = np.flatnonzero(row_dst == d)
+        want = idx[rows][mask[rows]]          # row by row, slot order
+        assert np.array_equal(col[ptr[d]:ptr[d + 1]], want), d
+    counts = np.diff(ptr)
+    heavy = np.flatnonzero(counts > plan.light_edges)
+    assert np.array_equal(plan.heavy_dst.numpy(), heavy)
+    hp, ch = plan.heavy_ptr.numpy(), plan.chunks.numpy()
+    assert hp[0] == 0 and hp[-1] == ch.shape[0]
+    for h, d in enumerate(heavy):
+        c = ch[hp[h]:hp[h + 1]]
+        assert c[0, 0] == ptr[d] and c[-1, 1] == ptr[d + 1]
+        assert np.array_equal(c[1:, 0], c[:-1, 1])
+        assert ((c[:, 1] - c[:, 0]) <= plan.chunk_edges).all()
+        assert ((c[:, 1] - c[:, 0]) > 0).all()
+
+
 @pytest.mark.parametrize("kind", ["random", "hub", "empty"])
 def test_kernel_layout_covers_every_row(kind):
     src, dst, n = graph(kind)
-    plan = build_frontier_plan(src, dst, n, n)
-    R = int((plan.row_dst < n).sum())
-    rows = np.diff(plan.dst_ptr)
-    assert plan.dst_ptr[0] == 0 and plan.dst_ptr[-1] == R
-    assert np.array_equal(np.repeat(np.arange(n), rows), plan.row_dst[:R])
-    heavy = np.flatnonzero(rows > plan.split_rows)
-    assert np.array_equal(plan.heavy_dst, heavy)
+    ref = ref_build(src, dst, n, n)
+    plan = plan_to_device(build_frontier_plan(src, dst, n, n), "cpu")
+    check_compact_layout(plan, ref)
     if kind == "hub":
-        assert 17 in heavy                 # the 5000-source hub is split
-    for h, d in enumerate(heavy):
-        ch = plan.chunks[plan.heavy_ptr[h]:plan.heavy_ptr[h + 1]]
-        assert ch[0, 0] == plan.dst_ptr[d] and ch[-1, 1] == plan.dst_ptr[d + 1]
-        assert np.array_equal(ch[1:, 0], ch[:-1, 1])
-        assert ((ch[:, 1] - ch[:, 0]) <= plan.split_rows).all()
-        assert ((ch[:, 1] - ch[:, 0]) > 0).all()
-    assert plan.heavy_ptr[-1] == plan.chunks.shape[0]
+        assert 17 in plan.heavy_dst.tolist()   # the 5000-source hub is split
+        h = plan.heavy_dst.tolist().index(17)
+        count = int(plan.edge_ptr[18] - plan.edge_ptr[17])
+        assert count >= 5000
+        assert int(plan.heavy_ptr[h + 1] - plan.heavy_ptr[h]) == \
+            -(-count // plan.chunk_edges)
+
+
+@pytest.mark.parametrize("kind", ["random", "hub", "empty"])
+@pytest.mark.parametrize("k_slots", [32, 7])
+@pytest.mark.parametrize("split", [None, (3, 5)])
+def test_compact_layout_matches_reference(kind, k_slots, split):
+    """Built by plan_to_device and by convert.plan_from_arrays, at the
+    default split and at a small one (more heavy destinations and
+    chunks)."""
+    src, dst, n = graph(kind, seed=k_slots)
+    ref = ref_build(src, dst, n, n, k_slots=k_slots)
+    for plan in (plan_to_device(build_frontier_plan(src, dst, n, n,
+                                                    k_slots=k_slots), "cpu"),
+                 convert.plan_from_arrays(convert.plan_to_arrays(ref),
+                                          "cpu")):
+        if split:
+            plan = dataclasses.replace(plan, **ops.kernel_layout(
+                plan.idx, plan.mask, plan.row_dst, plan.n_dst, *split))
+        check_compact_layout(plan, ref)
+        for name in REF_FIELDS[:3]:
+            assert np.array_equal(getattr(plan, name).numpy(),
+                                  np.asarray(getattr(ref, name)))
+
+
+def walk_panel(n: int, b: int, kind: str, seed: int) -> torch.Tensor:
+    """Panels for the emulated walk: all zero, one-hot columns, mostly zero
+    rows, and mostly zero rows holding NaN, inf and -0.0."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n, b), np.float32)
+    if kind == "one_hot":
+        x[rng.choice(n, min(b, n), replace=False), np.arange(min(b, n))] = 1
+    elif kind in ("sparse_rows", "non_finite"):
+        rows = rng.random(n) < 0.1
+        x[rows] = rng.random((int(rows.sum()), b)) < 0.3
+    if kind == "non_finite":
+        for v in (np.nan, np.inf, -np.inf):
+            x[rng.choice(n, 5, replace=False), rng.integers(0, b, 5)] = v
+        x[rng.choice(n, 30, replace=False)] = -0.0
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("kind", ["zero", "one_hot", "sparse_rows",
+                                  "non_finite"])
+@pytest.mark.parametrize("b", [1, 5, 64, 130])
+def test_emulated_walk_matches_counts(kind, b):
+    """The new walk (CSR ranges, hub chunks at a small split, skipped zero
+    rows) bitwise against frontier_expand_counts, NaN where it has NaN."""
+    src, dst, n = graph("hub", seed=b)
+    src, dst = src[::4], dst[::4]           # 1,750 edges, hub of 1,250
+    plan = plan_to_device(build_frontier_plan(src, dst, n, n), "cpu")
+    plan = dataclasses.replace(plan, **ops.kernel_layout(
+        plan.idx, plan.mask, plan.row_dst, n, 2, 64))
+    assert plan.chunks.shape[0] >= 20
+    x = walk_panel(n, b, kind, seed=b + 2)
+    got = emulate_kernel(plan, x)
+    want = frontier_expand_counts(plan, x)
+    fin = ~want.isnan()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got[fin], want[fin])
+    assert torch.equal(got[fin].signbit(), want[fin].signbit())
 
 
 @pytest.mark.parametrize("kind", ["random", "hub"])
@@ -136,9 +229,9 @@ def test_plan_from_reference_arrays():
     src, dst, n = graph("hub", seed=5)
     ref = ref_build(src, dst, n, n)
     plan = convert.plan_from_arrays(convert.plan_to_arrays(ref), "cpu")
-    own = build_frontier_plan(src, dst, n, n)
-    for name in ("dst_ptr", "heavy_dst", "heavy_ptr", "chunks"):
-        assert np.array_equal(getattr(plan, name).numpy(), getattr(own, name))
+    own = plan_to_device(build_frontier_plan(src, dst, n, n), "cpu")
+    for name in ("col", "edge_ptr", "heavy_dst", "heavy_ptr", "chunks"):
+        assert torch.equal(getattr(plan, name), getattr(own, name))
     x = panel(n, 5, seed=6)
     assert np.array_equal(
         frontier_expand_counts(plan, torch.from_numpy(x)).numpy(),

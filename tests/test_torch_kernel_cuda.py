@@ -56,7 +56,7 @@ def plan_and_panel(n, e, b, hub, k_slots, seed):
     return plan, torch.from_numpy(x)
 
 
-@pytest.mark.parametrize("b", [1, 5, 31, 32, 128, 130])
+@pytest.mark.parametrize("b", [1, 5, 31, 32, 64, 128, 130])
 @pytest.mark.parametrize("hub,k_slots", [(0, 32), (20000, 32), (5000, 7),
                                          (5000, 40)])
 def test_kernel_bitwise_equals_plain(cuda, b, hub, k_slots):
@@ -73,6 +73,83 @@ def test_kernel_bitwise_equals_plain(cuda, b, hub, k_slots):
     assert torch.equal(got.cpu(), cpu)
 
 
+def sparse_panel(n, b, kind, seed):
+    """Panels the wide path skips rows of: all zero, one-hot columns,
+    mostly zero rows, and mostly zero rows holding NaN, inf and -0.0."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n, b), np.float32)
+    if kind == "one_hot":
+        x[rng.choice(n, b, replace=False), np.arange(b)] = 1.0
+    elif kind in ("sparse_rows", "non_finite"):
+        rows = rng.random(n) < 0.05
+        x[rows] = (rng.random((int(rows.sum()), b)) < 0.3)
+        x[rng.random((n, b)) < 0.002] = 2.0
+    if kind == "non_finite":
+        x[rng.choice(n, 20, replace=False), rng.integers(0, b, 20)] = np.nan
+        x[rng.choice(n, 20, replace=False), rng.integers(0, b, 20)] = np.inf
+        x[rng.choice(n, 20, replace=False), rng.integers(0, b, 20)] = -np.inf
+        x[rng.choice(n, 200, replace=False)] = -0.0
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("b", [1, 5, 31, 32, 64, 128, 130])
+@pytest.mark.parametrize("kind", ["zero", "one_hot", "sparse_rows",
+                                  "non_finite"])
+def test_frontier_sparse_and_non_finite_panels(cuda, b, kind):
+    """Rows of only +-0 are skipped on the wide path and change no bit: the
+    kernel equals the plain version (NaN where it has NaN), and a
+    destination of -0.0 rows only sums to +0.0 in both."""
+    plan, _ = plan_and_panel(3000, 30000, 1, 8000, 32, seed=b)
+    x = sparse_panel(3000, b, kind, seed=b + 1)
+    dplan = plan_to_device(plan, cuda)
+    got = frontier_expand_counts(dplan, x.to(cuda))
+    want = frontier_expand_torch(dplan.idx, dplan.mask, x.to(cuda),
+                                 dplan.row_dst, dplan.n_dst)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan())
+    fin = ~got.isnan()
+    assert torch.equal(got[fin], want[fin])
+    assert torch.equal(got[fin].signbit(), want[fin].signbit())
+    if kind == "zero":
+        assert not got.any() and not got.signbit().any()
+
+
+@pytest.mark.parametrize("b", [1, 64, 128])
+def test_frontier_hub_above_the_edge_split(cuda, b):
+    """A hub of 12,000 distinct sources: many chunks of chunk_edges, summed
+    by pass 2; a second run gives the same bits."""
+    rng = np.random.default_rng(b)
+    n = 20000
+    src = np.concatenate([rng.integers(0, n, 60000),
+                          rng.choice(n, 12000, replace=False)])
+    dst = np.concatenate([rng.integers(0, n, 60000), np.full(12000, 11)])
+    plan = plan_to_device(build_frontier_plan(src, dst, n, n), cuda)
+    assert 11 in plan.heavy_dst.tolist()
+    h = plan.heavy_dst.tolist().index(11)
+    assert int(plan.heavy_ptr[h + 1] - plan.heavy_ptr[h]) >= \
+        12000 // plan.chunk_edges
+    x = (torch.rand((n, b), device=cuda) < 0.5).to(torch.float32)
+    got = frontier_expand_counts(plan, x)
+    want = frontier_expand_torch(plan.idx, plan.mask, x, plan.row_dst, n)
+    assert torch.equal(got, want)
+    assert torch.equal(frontier_expand_counts(plan, x), got)
+    assert int(got[11].max()) > 4000
+
+
+@pytest.mark.parametrize("b", [32, 128])
+def test_frontier_unaligned_panel_takes_the_scalar_path(cuda, b):
+    """x whose data_ptr is 4 mod 16 (contiguous, B % 4 == 0)."""
+    plan, x = plan_and_panel(3000, 30000, b, 5000, 32, seed=7)
+    dplan = plan_to_device(plan, cuda)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    xs = buf[1:].view(x.shape)
+    xs.copy_(x.to(cuda))
+    assert xs.data_ptr() % 16 == 4
+    got = frontier_expand_counts(dplan, xs)
+    assert torch.equal(got, frontier_expand_torch(
+        dplan.idx, dplan.mask, xs, dplan.row_dst, dplan.n_dst))
+
+
 def test_empty_plan_and_bad_inputs(cuda):
     plan = plan_to_device(build_frontier_plan(
         np.empty(0, np.int64), np.empty(0, np.int64), 10, 12), cuda)
@@ -84,7 +161,7 @@ def test_empty_plan_and_bad_inputs(cuda):
         frontier_expand_counts(plan, torch.ones((10, 6), device=cuda)[:, ::2])
 
 
-@pytest.mark.parametrize("f", [1, 100, 128, 1433])
+@pytest.mark.parametrize("f", [1, 3, 4, 100, 102, 128, 1433])
 @pytest.mark.parametrize("k", [1, 15, 32])
 def test_segment_ell_bitwise_equals_plain(cuda, k, f):
     """From edges with a hub destination (far more in-edges than K, so its
@@ -104,6 +181,22 @@ def test_segment_ell_bitwise_equals_plain(cuda, k, f):
                  for a in pad_to_ell(src, dst, n, k))
     assert bool(mask[7].all())
     assert torch.equal(got, se.segment_ell_torch(idx, mask, x.to(cuda)))
+
+
+@pytest.mark.parametrize("f", [4, 100])
+def test_segment_ell_unaligned_x_takes_the_scalar_path(cuda, f):
+    """x whose data_ptr is 4 mod 16 with F % 4 == 0: no 16-byte loads, and
+    still bitwise equal to the plain version."""
+    rng = np.random.default_rng(f)
+    n, k = 2000, 15
+    idx = torch.from_numpy(rng.integers(0, n, (n, k)).astype(np.int32))
+    mask = torch.from_numpy(rng.random((n, k)) < 0.7)
+    buf = torch.from_numpy(rng.normal(size=n * f + 1).astype(np.float32))
+    x = buf.to(cuda)[1:].view(n, f)
+    assert x.data_ptr() % 16 == 4 and x.is_contiguous()
+    got = se.segment_ell(idx.to(cuda), mask.to(cuda), x)
+    assert torch.equal(got, se.segment_ell_torch(idx.to(cuda),
+                                                 mask.to(cuda), x))
 
 
 def test_segment_ell_never_reads_masked_slots(cuda):

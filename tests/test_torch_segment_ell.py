@@ -50,7 +50,9 @@ def test_pad_to_ell_matches_reference_bitwise(kind, max_degree):
 
 
 @pytest.mark.parametrize("n,k,m,f", [(100, 8, 50, 30), (256, 16, 256, 128),
-                                     (33, 5, 20, 200), (128, 1, 10, 128)])
+                                     (33, 5, 20, 200), (128, 1, 10, 128),
+                                     (70, 1, 20, 3), (50, 15, 40, 4),
+                                     (64, 15, 30, 100), (64, 9, 30, 102)])
 def test_plain_version_matches_reference(n, k, m, f):
     rng = np.random.default_rng(n * k)
     idx = rng.integers(0, m, (n, k)).astype(np.int32)
@@ -103,6 +105,26 @@ def test_all_masked_and_garbage_in_masked_slots():
     x = torch.arange(12, dtype=torch.float32).reshape(4, 3)
     out = segment_ell_torch(idx, mask, x)
     assert torch.equal(out, x[[1, 2]])
+
+
+@pytest.mark.parametrize("f", [4, 100])
+def test_unaligned_x_view(f):
+    """A contiguous x whose data starts 4 bytes into its buffer (the card
+    takes the scalar path there): the same sums as an aligned copy."""
+    rng = np.random.default_rng(f)
+    n, k = 200, 15
+    idx = torch.from_numpy(rng.integers(0, n, (n, k)).astype(np.int32))
+    mask = torch.from_numpy(rng.random((n, k)) < 0.7)
+    buf = torch.from_numpy(rng.normal(size=n * f + 1).astype(np.float32))
+    x = buf[1:].view(n, f)
+    assert x.data_ptr() % 16 == (buf.data_ptr() + 4) % 16
+    got = segment_ell(idx, mask, x)
+    assert torch.equal(got, segment_ell(idx, mask, x.clone()))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(segment_ell_ref(jnp.asarray(idx.numpy()),
+                                                jnp.asarray(mask.numpy()),
+                                                jnp.asarray(x.numpy()))),
+        rtol=1e-6, atol=1e-6)
 
 
 def test_bad_inputs_raise():
