@@ -60,8 +60,12 @@ graph store read by multi-hop queries and analysed by PSW:
   8. pooled lookups at bert4rec's serving shape (a 1,000,192 x 64 fp32 item
      table, 16,384 and 512 histories of 200 slots, left-padded): the
      embedding_bag kernel in sum and mean, bitwise against its plain
-     version and within 1e-5 of float64 numpy, with the F.embedding_bag
-     yardstick.
+     version and within 1e-5 of float64 numpy, with the kernel's and the
+     wrapper's times (the wrapper's read of the id-check word included)
+     and the F.embedding_bag yardstick; then, at B = 64, ids of V and -1
+     must raise ValueError (and the next call be bitwise again), and, at
+     B = 64 and 4,096, a padding row holding inf or NaN must give the
+     plain version's NaN columns.
 
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 1-2 for frontier_expand, phase 6's aggregation calls for
@@ -286,6 +290,34 @@ def cuda_ms(torch, fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_ms(torch, fn, reps: int) -> float:
+    """Device time of one call of `fn`: `reps` calls captured in one CUDA
+    graph and replayed, so the host's launch path is out of the time (it
+    outlasts a kernel of a few microseconds). Best of 3 replays."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(3):
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        best = min(best, a.elapsed_time(b) / reps)
+    return best
 
 
 def kernel_vs_plain(torch, fe, kernel, plan, x, reps: int) -> dict:
@@ -986,18 +1018,71 @@ def bag_oracle(idx, w, table, mode: str) -> np.ndarray:
     return out
 
 
-def phase_bags(torch, dev, args, clock, eb_kernel):
-    """Pooled lookups at bert4rec's serving shape through `embedding_bag`,
-    then each result against its plain version (bitwise) and float64
-    numpy, with times, bound and the F.embedding_bag yardstick."""
-    from repro_torch.kernels import embedding_bag as eb
+def bag_inputs(torch, dev, args):
+    """Phase 8's inputs: bert4rec's item table made on the card from
+    --seed, and --bags left-padded histories of 200 slots (host numpy)."""
     V, D, K = 1_000_192, 64, 200               # bert4rec padded_vocab, d, seq
-    log(f"phase 8 pooled lookups: table {V} x {D} fp32, histories of {K}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 30)
     table = torch.randn((V, D), generator=gen, device=dev).mul_(0.02)
-    idx_np, w_np = clock(f"history_bags ({args.bags} x {K})", history_bags,
-                         args.bags, K, 1_000_000, args.seed + 31)
+    idx_np, w_np = history_bags(args.bags, K, 1_000_000, args.seed + 31)
+    return table, idx_np, w_np
+
+
+def bags_rows_read(w) -> int:
+    """Rows the kernel reads on left-padded histories: every slot of
+    weight != 0, and the padding row once a padded bag."""
+    return int((w != 0).sum()) + int((w == 0).any(1).sum())
+
+
+def bag_checks(torch, eb, table, idx, w) -> dict:
+    """The id check and the exact skip of weight-0 rows: at B = 64 an id
+    of V and one of -1 must raise ValueError and a later call must be
+    bitwise equal again; at B = 64 and 4,096 (few and many warps a SM:
+    the kernel's two depths of loads in flight) a padding row holding inf
+    or NaN must give the plain version's NaN columns."""
+    B, V = 64, table.shape[0]
+    i, ww = idx[:B], w[:B]
+    for bad_id in (V, -1):
+        bad = i.clone()
+        bad[B // 2, -1] = bad_id
+        try:
+            eb.embedding_bag(bad, ww, table)
+            fail(f"embedding_bag took id {bad_id} of a {V}-row table")
+        except ValueError:
+            pass
+    check(torch.equal(eb.embedding_bag(i, ww, table),
+                      eb.embedding_bag_torch(i, ww, table)),
+          "embedding_bag after a refused call != plain version")
+    nan_cols = {}
+    for nb in (B, 4096):
+        i, ww = idx[:nb], w[:nb]
+        for poison in (float("inf"), float("nan")):
+            t = table[:1000].clone()
+            t[0, ::2] = poison                 # the padding row
+            j = torch.where(ww == 0, i, i % 1000)
+            got = eb.embedding_bag(j, ww, t)
+            want = eb.embedding_bag_torch(j, ww, t)
+            nan = want.isnan()
+            check(bool(nan.any()) and torch.equal(got.isnan(), nan)
+                  and torch.equal(got[~nan], want[~nan]),
+                  f"embedding_bag B={len(i)} with a {poison} padding row "
+                  "!= plain version")
+            nan_cols[f"B={len(i)} {poison}"] = int(nan.sum())
+    return {"B": B, "refused_ids": [V, -1], "nan_entries": nan_cols}
+
+
+def phase_bags(torch, dev, args, clock, eb_kernel):
+    """Pooled lookups at bert4rec's serving shape through `embedding_bag`,
+    then each result against its plain version (bitwise) and float64
+    numpy, with the kernel's and the wrapper's times (the wrapper reads
+    the kernel's error word back: a sync), bound and the F.embedding_bag
+    yardstick; then the id check and non-finite padding at a small B."""
+    from repro_torch.kernels import embedding_bag as eb
+    table, idx_np, w_np = clock(f"bag inputs ({args.bags} histories)",
+                                bag_inputs, torch, dev, args)
+    (V, D), K = table.shape, idx_np.shape[1]
+    log(f"phase 8 pooled lookups: table {V} x {D} fp32, histories of {K}")
     idx, w = torch.from_numpy(idx_np).to(dev), torch.from_numpy(w_np).to(dev)
     runs = [(B, mode) for B in (args.bags, 512) for mode in ("sum", "mean")]
     eb.ops.launches = 0                        # the lookup path...
@@ -1020,28 +1105,40 @@ def phase_bags(torch, dev, args, clock, eb_kernel):
         err = float(np.abs(got.cpu().numpy() - ref).max())
         check(err <= 1e-5, f"embedding_bag B={B} {mode} vs float64: {err}")
         out = torch.empty((B, D), device=dev)
+        err_word = torch.zeros(1, dtype=torch.int32, device=dev)
         res = {"B": B, "K": K, "D": D, "mode": mode,
                "max_abs_err": float((got - want).abs().max()),
                "max_abs_err_vs_float64": err,
-               "ms": cuda_ms(torch, lambda: eb_kernel.launch(i, ww, table,
-                                                             out),
-                             args.reps),
+               "ms": cuda_ms(torch, lambda: eb_kernel.launch(
+                   i, ww, table, out, err_word), args.reps),
+               "graph_ms": graph_ms(torch, lambda: eb_kernel.launch(
+                   i, ww, table, out, err_word), args.reps),
+               "wrapper_ms": cuda_ms(torch, lambda: eb.embedding_bag(
+                   i, ww, table, mode=mode), args.reps),
                "plain_ms": cuda_ms(torch, lambda: eb.embedding_bag_torch(
                    i, ww, table), max(1, args.reps // 4))}
+        check(err_word.tolist() == [0] and torch.equal(out, plain_sum),
+              f"embedding_bag B={B}: kernel after timing != plain version "
+              f"(error word {err_word.tolist()})")
         # yardstick: F.embedding_bag's weighted sum (no weighted mean there)
         ii = i.long()
         lib = torch.nn.functional.embedding_bag(ii, table,
                                                 per_sample_weights=ww,
                                                 mode="sum")
         res["library_max_abs_err"] = float((lib - plain_sum).abs().max())
-        res["library_ms"] = cuda_ms(torch, lambda: torch.nn.functional
-                                    .embedding_bag(ii, table,
-                                                   per_sample_weights=ww,
-                                                   mode="sum"), args.reps)
+
+        def library():
+            torch.nn.functional.embedding_bag(ii, table,
+                                              per_sample_weights=ww,
+                                              mode="sum")
+
+        res["library_ms"] = cuda_ms(torch, library, args.reps)
+        res["library_graph_ms"] = graph_ms(torch, library, args.reps)
         distinct = int(torch.unique(i).numel())
         res.update(bound(distinct * D * 4 + B * K * 8 + B * D * 4,
                          2 * B * K * D, FP32_OPS_PER_S))
         res["distinct_rows"] = distinct
+        res["rows_read"] = bags_rows_read(ww)
         res["gather_bound_ms"] = (B * K * D * 4 + B * K * 8 + B * D * 4) \
             / HBM_BYTES_PER_S * 1e3
         results.append(res)
@@ -1049,6 +1146,8 @@ def phase_bags(torch, dev, args, clock, eb_kernel):
         del ii, lib, want, plain_sum
     log(f"  {launches} embedding_bag launches; every result bitwise equal to "
         "the plain version and within 1e-5 of float64 numpy")
+    log("  id check and non-finite padding: "
+        + json.dumps(bag_checks(torch, eb, table, idx, w)))
     del table, outs
     return launches, results
 

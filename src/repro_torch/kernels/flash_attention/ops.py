@@ -4,17 +4,19 @@
 `flash_attention` is a `torch.autograd.Function`. Its forward launches the
 CUDA kernel for CUDA tensors and takes the plain torch version for CPU
 tensors; there is no fallback from one to the other, so a kernel that
-fails to build or launch raises. Its backward recomputes attention through
-the ported `attention_ref`, as the reference's custom VJP does (that oracle
-aligns the causal mask bottom-right, the forward top-left: the two agree
-for S == T, ROADMAP queue 3 note b). The kernel masks ragged S and T
-itself, so nothing is padded."""
+fails to build or launch raises. Its backward recomputes the forward's own
+plain version, `flash_attention_torch` (causal mask aligned top-left), and
+differentiates that, so the gradient is the forward's for every S and T.
+The reference's custom VJP recomputes through its `attention_ref` instead,
+whose mask is aligned bottom-right: the two gradients agree only for
+S == T (ROADMAP queue 3 note b). The kernel masks ragged S and T itself,
+so nothing is padded."""
 from __future__ import annotations
 
 import torch
 
 from . import kernel as _kernel
-from .ref import attention_ref, flash_attention_torch
+from .ref import flash_attention_torch
 
 __all__ = ["flash_attention"]
 
@@ -77,7 +79,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         with torch.enable_grad():
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = attention_ref(*qkv, ctx.causal)
+            out = flash_attention_torch(*qkv, ctx.causal)
             dq, dk, dv = torch.autograd.grad(out, qkv, g)
         return dq, dk, dv, None
 

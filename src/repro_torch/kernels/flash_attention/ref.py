@@ -10,8 +10,9 @@ t <= q_pos0 + s), as the Pallas kernel and the reference's
 
 `attention_ref` ports the reference oracle, whose causal mask is aligned
 bottom-right (`tril(k=T-S)`): the two agree only for S == T (ROADMAP
-queue 3 note b). The wrapper's backward recomputes through it, as the
-reference's does."""
+queue 3 note b). The tests hold the port against it; the wrapper's
+backward recomputes through `flash_attention_torch`, the forward's own
+function."""
 from __future__ import annotations
 
 from typing import Optional

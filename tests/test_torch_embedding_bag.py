@@ -5,7 +5,8 @@ Held at TestEmbeddingBag's tolerances (rtol/atol 1e-5 on its shapes, 1e-4
 in the property case) against the reference's jnp path
 (`embedding_bag(..., use_kernel=False)`) and `embedding_bag_ref`: its
 Pallas body calls `pl.load`, which jax 0.9 no longer has (ROADMAP queue 3
-note a)."""
+note a). Ids outside [0, V) raise ValueError in the port, where the
+reference's jnp oracle clamps high ids and wraps negative ones (note f)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,6 +106,35 @@ def test_plain_is_a_slot_loop():
     got64 = embedding_bag(torch.from_numpy(idx).long(), torch.from_numpy(w),
                           t)
     assert torch.equal(got64, got)
+
+
+@pytest.mark.parametrize("bad_id,dtype", [
+    (4, torch.int32), (-1, torch.int32), (4, torch.int64), (-1, torch.int64),
+    (2**32 + 1, torch.int64)])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_ids_outside_the_table_raise(bad_id, dtype, mode):
+    """V = 4 rows: ids V and -1 (and an int64 id that an int32 cast would
+    bring back into range) raise, where the reference clamps and wraps."""
+    table = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    idx = torch.tensor([[1, bad_id]], dtype=dtype)
+    with pytest.raises(ValueError, match=r"\[0, 4\)"):
+        embedding_bag(idx, torch.ones((1, 2)), table, mode=mode)
+    ok = embedding_bag(torch.tensor([[1, 3]], dtype=dtype), torch.ones((1, 2)),
+                       table, mode=mode)
+    assert torch.equal(ok, torch.tensor([[12., 14., 16.]]) / (
+        2 if mode == "mean" else 1))
+
+
+def test_reference_clamps_and_wraps_what_the_port_refuses():
+    """The documented difference (ROADMAP queue 3 note f), pinned."""
+    table = np.arange(12, dtype=np.float32).reshape(4, 3)
+    idx, w = np.array([[5, -1]], np.int32), np.ones((1, 2), np.float32)
+    ref = np.asarray(embedding_bag_ref(jnp.asarray(idx), jnp.asarray(w),
+                                       jnp.asarray(table)))
+    np.testing.assert_array_equal(ref, [[18, 20, 22]])    # row 3 twice
+    with pytest.raises(ValueError):
+        embedding_bag(torch.from_numpy(idx), torch.from_numpy(w),
+                      torch.from_numpy(table))
 
 
 @pytest.mark.parametrize("bad,exc", [

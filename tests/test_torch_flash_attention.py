@@ -6,9 +6,11 @@ Tolerances are TestFlashAttention's own: rtol/atol 2e-5 in float32
 against `flash_attention_pallas` (interpret mode) and `attention_ref`,
 2e-2 in bfloat16, 1e-4 for the gradients. The causal mask of the kernel and
 its plain version is aligned top-left; the reference's `attention_ref` (and
-so both backwards) aligns it bottom-right. The two agree for S == T only
-(ROADMAP queue 3 note b), so S < T is held against the Pallas kernel and a
-hand-built top-left mask."""
+so the reference's custom VJP) aligns it bottom-right. The two agree for
+S == T only (ROADMAP queue 3 note b), so S < T is held against the Pallas
+kernel and a hand-built top-left mask, and the port's gradient for causal
+S != T against autograd through its forward's plain version (1e-5) and
+`jax.grad` of the reference's top-left `blockwise_attention` (1e-4)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 from repro.kernels.flash_attention import attention_ref as ref_attention
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro.kernels.flash_attention import flash_attention_pallas
+from repro.models.transformer import blockwise_attention
 from repro_torch.kernels.flash_attention import (attention_chunked,
                                                  attention_ref,
                                                  flash_attention,
@@ -127,6 +130,40 @@ def test_grads_match_reference_custom_vjp(hkv):
     for t, w in zip(ts, want):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,t,h,hkv,d", [
+    (1, 3, 5, 2, 1, 16), (1, 5, 3, 2, 1, 16), (2, 7, 12, 4, 2, 16),
+    (1, 12, 7, 6, 2, 32)])
+def test_causal_grads_are_the_forwards_when_s_differs_from_t(b, s, t, h,
+                                                             hkv, d):
+    """The backward differentiates the forward's top-left mask, for S < T
+    and S > T, one kv head and GQA."""
+    q, k, v = qkv(b, s, t, h, hkv, d, seed=s * t + h)
+    g = np.random.default_rng(d).normal(size=q.shape).astype(np.float32)
+    ts = [x.requires_grad_() for x in torch_of(q, k, v)]
+    flash_attention(*ts, causal=True).backward(torch.from_numpy(g))
+    plain = [x.detach().clone().requires_grad_() for x in ts]
+    flash_attention_torch(*plain, True).backward(torch.from_numpy(g))
+    for got, want in zip(ts, plain):
+        torch.testing.assert_close(got.grad, want.grad, rtol=1e-5,
+                                   atol=1e-5)
+
+    def f(q, k, v):
+        out = blockwise_attention(q, k, v, causal=True, q_chunk=s,
+                                  kv_chunk=t, q_pos0=0)
+        return (out * jnp.asarray(g)).sum()
+
+    args = [jnp.asarray(a) for a in (q, k, v)]
+    want = jax.grad(f, argnums=(0, 1, 2))(*args)
+    for got, w in zip(ts, want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w),
+                                   rtol=1e-4, atol=1e-4)
+    # the reference's custom VJP differentiates its bottom-right oracle
+    custom = jax.grad(lambda *a: (ref_flash(*a, True) * jnp.asarray(g)).sum(),
+                      argnums=(0, 1, 2))(*args)
+    assert max(float(np.abs(np.asarray(c) - x.grad.numpy()).max())
+               for c, x in zip(custom, ts)) > 0.1
 
 
 def test_no_launch_on_cpu_and_plain_is_the_forward():

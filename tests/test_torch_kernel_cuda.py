@@ -15,7 +15,8 @@ within 1e-6 of a float64 sum; flash_attention is rtol/atol 2e-5 against its
 plain version in float32 (TestFlashAttention's tolerance: the fp32 SIMT
 kernel and cuBLAS sum in another order) and 2e-2 in bfloat16 (test_bf16's:
 the kernel rounds P to bf16 for P·V, on wgmma + TMA); embedding_bag is bitwise (both add
-w·row in slot order, rounded twice in fp32)."""
+w·row in slot order, rounded twice in fp32; where a row holds inf or NaN, the NaN
+columns are compared as a mask, since NaN != NaN)."""
 import numpy as np
 import pytest
 import torch
@@ -407,35 +408,110 @@ def test_flash_attention_refused_launch_raises(cuda):
         fa.flash_attention(q, q.cpu(), q)
 
 
+def bags(B, K, V, rng, interior=0.0):
+    """Left-padded histories (item 0, weight 0) of lengths 1..K, plus a
+    share `interior` of the real slots with weight 0 on a random row."""
+    lens = rng.integers(1, K + 1, B)
+    real = np.arange(K)[None, :] >= (K - lens)[:, None]
+    idx = np.where(real, rng.integers(1, V, (B, K)), 0)
+    w = real * rng.random((B, K))
+    w[rng.random((B, K)) < interior] = 0.0
+    return idx, w.astype(np.float32)
+
+
 @pytest.mark.parametrize("mode", ["sum", "mean"])
-@pytest.mark.parametrize("d", [64, 100, 300])
+@pytest.mark.parametrize("d", [1, 63, 64, 100, 300])
 def test_embedding_bag_bitwise_equals_plain(cuda, d, mode):
-    """Left-padded histories (item 0, weight 0) of K = 200 slots, and a
-    K = 37 case with real weights; int32 and int64 ids."""
+    """B in {1, 511, 512, 513, 16,384} x K in {1, 37, 200}: left-padded
+    histories with interior zero weights, int32 and int64 ids."""
     rng = np.random.default_rng(d)
     V = 20_000
-    table = torch.from_numpy(rng.normal(size=(V, d)).astype(np.float32)
-                             ).to(cuda)
-    for B, K in ((513, 200), (64, 37)):
-        lens = rng.integers(1, K + 1, B)
-        real = np.arange(K)[None, :] >= (K - lens)[:, None]
-        idx = np.where(real, rng.integers(1, V, (B, K)), 0).astype(np.int32)
-        w = (real * rng.random((B, K))).astype(np.float32)
-        idx_t, w_t = torch.from_numpy(idx).to(cuda), torch.from_numpy(w).to(
-            cuda)
-        before = eb.ops.launches
-        got = eb.embedding_bag(idx_t, w_t, table, mode=mode)
-        torch.cuda.synchronize()
-        assert eb.ops.launches == before + 1
+    table_cpu = torch.from_numpy(rng.normal(size=(V, d)).astype(np.float32))
+    table = table_cpu.to(cuda)
+    for B in (1, 511, 512, 513, 16_384):
+        for K in (1, 37, 200):
+            idx, w = bags(B, K, V, rng, interior=0.1)
+            w_t = torch.from_numpy(w).to(cuda)
+            want = eb.embedding_bag_torch(torch.from_numpy(idx).to(cuda),
+                                          w_t, table)
+            if mode == "mean":
+                want = want / torch.clamp_min(w_t.sum(1, keepdim=True), 1e-9)
+            for dtype in (torch.int32, torch.int64):
+                idx_t = torch.from_numpy(idx).to(dtype).to(cuda)
+                before = eb.ops.launches
+                got = eb.embedding_bag(idx_t, w_t, table, mode=mode)
+                torch.cuda.synchronize()
+                assert eb.ops.launches == before + 1
+                assert torch.equal(got, want), (B, K, dtype)
+            if B <= 513:
+                cpu = eb.embedding_bag(idx_t.cpu(), w_t.cpu(), table_cpu,
+                                       mode=mode)
+                torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5,
+                                           atol=1e-5)
+
+
+@pytest.mark.parametrize("poison", [float("inf"), float("-inf"),
+                                    float("nan")])
+@pytest.mark.parametrize("d", [1, 64, 100])
+def test_embedding_bag_non_finite_padding_row(cuda, poison, d):
+    """Weight-0 slots on a row holding inf or NaN give the plain version's
+    NaN columns: the kernel's skip of repeated weight-0 rows is exact, at
+    600 bags (few warps: many loads in flight each) and 4,096 (more warps
+    than 16 a SM: fewer loads in flight each)."""
+    rng = np.random.default_rng(7)
+    V = 1000
+    table = torch.from_numpy(rng.normal(size=(V, d)).astype(np.float32))
+    table[0, ::2] = poison                   # the padding row
+    table[5, 1::3] = poison                  # an interior weight-0 row
+    table = table.to(cuda)
+    for B in (600, 4096):
+        idx, w = bags(B, 200, V, rng)
+        idx[:, 150::7] = 5
+        w[:, 150::7] = 0.0
+        idx_t = torch.from_numpy(idx).to(cuda)
+        w_t = torch.from_numpy(w).to(cuda)
+        got = eb.embedding_bag(idx_t, w_t, table)
         want = eb.embedding_bag_torch(idx_t, w_t, table)
-        if mode == "mean":
-            want = want / torch.clamp_min(w_t.sum(1, keepdim=True), 1e-9)
-        assert torch.equal(got, want)
-        assert torch.equal(eb.embedding_bag(idx_t.long(), w_t, table,
-                                            mode=mode), got)
-        cpu = eb.embedding_bag(idx_t.cpu(), w_t.cpu(), table.cpu(),
-                               mode=mode)
-        torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-5)
+        assert want.isnan().any()
+        assert torch.equal(got.isnan(), want.isnan()), B
+        assert torch.equal(got[~want.isnan()], want[~want.isnan()]), B
+
+
+@pytest.mark.parametrize("bad_id", [20_000, -1, 2**32 + 1])
+def test_embedding_bag_out_of_range_ids_raise(cuda, bad_id):
+    """The kernel reads no row outside [0, V): the slot adds nothing and the
+    error word is set; the wrapper raises, and later calls are bitwise."""
+    rng = np.random.default_rng(3)
+    V, D = 20_000, 64
+    table = torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32)
+                             ).to(cuda)
+    idx, w = bags(512, 200, V, rng)
+    idx_t = torch.from_numpy(idx).to(cuda)
+    w_t = torch.from_numpy(w).to(cuda)
+    bad = idx_t.clone()
+    bad[100, 199] = bad_id
+    if bad_id < 2**31:
+        bad32 = bad.int()
+        w_off = w_t.clone()
+        w_off[100, 199] = 0.0
+        # the error word on the card, or pinned on the host (the wrapper's)
+        for err in (torch.zeros(1, dtype=torch.int32, device=cuda),
+                    torch.zeros(1, dtype=torch.int32, pin_memory=True)):
+            out = torch.empty((512, D), device=cuda)
+            eb_kernel.launch(bad32, w_t, table, out, err)
+            torch.cuda.synchronize()
+            assert err.tolist() == [1]
+            assert torch.equal(out, eb.embedding_bag_torch(idx_t, w_off,
+                                                           table))
+    for dtype in (torch.int32, torch.int64):
+        if bad_id >= 2**31 and dtype == torch.int32:
+            continue
+        with pytest.raises(ValueError, match="ids must lie"):
+            eb.embedding_bag(bad.to(dtype), w_t, table)
+        assert all(word.tolist() == [0]
+                   for word in eb.ops._error_words.values())
+        got = eb.embedding_bag(idx_t.to(dtype), w_t, table)
+        assert torch.equal(got, eb.embedding_bag_torch(idx_t, w_t, table))
 
 
 def test_embedding_bag_refused_launch_raises(cuda):
@@ -443,8 +519,12 @@ def test_embedding_bag_refused_launch_raises(cuda):
     w = torch.ones((1, 1), device=cuda)
     table = torch.zeros((1, 128 * 65536), device=cuda)   # grid.y > 65535
     out = torch.empty((1, 128 * 65536), device=cuda)
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
-        eb_kernel.launch(idx, w, table, out)
+        eb_kernel.launch(idx, w, table, out, err)
+    with pytest.raises(ValueError, match="pinned"):
+        eb_kernel.launch(idx, w, table[:, :8], out[:, :8],
+                         torch.zeros(1, dtype=torch.int32))
     empty = eb.embedding_bag(idx[:0], w[:0], table[:, :8])
     assert tuple(empty.shape) == (0, 8)
     with pytest.raises(TypeError):
