@@ -2,11 +2,38 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--vertices N] [--edges N] [--seed S]
+                          [--disk-budget-mb MB]
 
 Run from the root of a checkout: the port is imported from `src/`, and its
 CUDA kernels are built from the checkout's sources into `build/kernels/` at
 first use (one nvcc per kernel, all started together). The main path is the
-graph store read by multi-hop queries and analysed by PSW:
+graph store read by multi-hop queries and analysed by PSW. Phase 9, the
+disk tier, runs first, right after the build, while the process's peak RSS
+is still its baseline; phases 0-8 follow:
+
+  9. the disk tier at benchmarks/bench_disk.py's scale-1.0 configuration
+     (a 96 MB data budget; --disk-budget-mb sets it, and with it the edge
+     count, 4.2 x budget / 41 bytes, over edges / 30 vertex ids): a
+     `GraphDB` in `build/disk_phase/` (64 intervals, 3 levels, branching 4,
+     partitions of at most budget / 1,230 edges, a resident budget of
+     budget / 8) built from 100,000-edge chunks of default_rng(7) with a
+     checkpoint every 1,000,000 edges; (a) its bytes on disk at least 4x
+     the budget; (b) `pagerank_out_of_core` for 5 iterations, evicting
+     after every bucket, the peak RSS delta of a and b within the budget
+     (bench_disk's 96 MB floor; glibc's M_MMAP_THRESHOLD pinned as there
+     for the rest of the run); (c) close and
+     `GraphDB.open`, `to_coo()` bitwise and bench_disk's 500 probe edges
+     found both ways; (e) over the reopened store, its dense plan built and
+     timed apart, `two_hop_counts(dense="kernel")` on 256 seeds and
+     `khop(dense="kernel", k=3)` from 64, bitwise equal to the sparse host
+     path and to a `GraphPAL` of its `to_coo()`; (f) `GraphDB.snapshot()`
+     bitwise equal to the GraphPAL's `DeviceGraph`, `pagerank_device` in
+     both modes bitwise equal and within 1e-4 of step b's out-of-core
+     ranks; (g) `psw_spmm_edges` over the store's edges at F = 128 within
+     rowwise 1e-5 of the float32 edge oracle and 1e-4 of float64; (d) last,
+     bench_disk's crash recovery: 20,000 more edges, the directory copied
+     while the store is live, the copy opened to every acknowledged edge
+     and the live store's `to_coo()`;
 
   0. a small graph: the dense kernel path against the per-hop baselines
      (`bfs_perhop`, `friends_of_friends_perhop`);
@@ -70,7 +97,11 @@ graph store read by multi-hop queries and analysed by PSW:
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 1-2 for frontier_expand, phase 6's aggregation calls for
 segment_ell and psw_spmm, phase 7's `serve_requests` for flash_attention,
-phase 8's lookups for embedding_bag) and read just after. Any failed check exits non-zero. The
+phase 8's lookups for embedding_bag) and read just after; the disk path's
+own counts (phase 9's dense calls on the store for frontier_expand, its
+`psw_spmm_edges` for psw_spmm) are logged on the `disk path:` line and
+given as `disk_path_launches` in the kernels line. Any failed check exits
+non-zero. The
 second-to-last line is the card's name and power limit from nvidia-smi;
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -78,6 +109,7 @@ the last line is
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import resource
@@ -1152,6 +1184,259 @@ def phase_bags(torch, dev, args, clock, eb_kernel):
     return launches, results
 
 
+def pin_mmap_threshold() -> bool:
+    """benchmarks/bench_disk.py's pin: glibc's dynamic M_MMAP_THRESHOLD
+    keeps freed multi-MB merge scratch in the heap (RSS that has nothing to
+    do with the storage tier); pinned, large temporaries come from and
+    return to mmap. It stays pinned for the rest of the run."""
+    try:
+        libc = ctypes.CDLL("libc.so.6", use_errno=True)
+        return libc.mallopt(-3, 256 * 1024) == 1  # M_MMAP_THRESHOLD
+    except OSError:
+        return False
+
+
+def peak_rss_bytes() -> int:
+    """Peak RSS so far, as bench_disk reads it (ru_maxrss is KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def current_rss_bytes() -> int:
+    """VmRSS from `/proc/self/status`, in bytes."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return -1
+
+
+def filesystem_of(path: str) -> str:
+    """The type and mount point of the filesystem holding `path`."""
+    path, best = os.path.realpath(path), ("", "unknown")
+    with open("/proc/mounts") as fh:
+        for line in fh:
+            mnt, fstype = line.split()[1:3]
+            mnt = mnt.replace("\\040", " ")
+            inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) > len(best[0]):
+                best = (mnt, fstype)
+    return f"{best[1]} at {best[0]}"
+
+
+def disk_probes_ok(db, probes) -> bool:
+    """bench_disk's probe check: every kept (s, d) edge is in s's
+    out-neighbours and d's in-neighbours, through the batched engine."""
+    eng = db.storage_engine()
+    ps_ = np.asarray([s for s, _ in probes], np.int64)
+    pd_ = np.asarray([d for _, d in probes], np.int64)
+    vals, offs = eng.out_neighbors_batch(ps_)
+    ok_out = all(pd_[i] in vals[offs[i]:offs[i + 1]] for i in range(len(ps_)))
+    vals, offs = eng.in_neighbors_batch(pd_)
+    ok_in = all(ps_[i] in vals[offs[i]:offs[i + 1]] for i in range(len(pd_)))
+    return ok_out and ok_in
+
+
+def same_coo(a, b) -> bool:
+    return all(x.dtype == y.dtype and np.array_equal(x, y)
+               for x, y in zip(a, b))
+
+
+def phase_disk(torch, core, fe_ops, ps, dev, args, clock) -> dict:
+    """Phase 9, the disk tier, at benchmarks/bench_disk.py's scale-1.0
+    configuration (--disk-budget-mb sets the budget and with it the edge
+    count). Steps a-c and e-g run in the letters' order; d, the crash
+    recovery, runs last, so that the store of e-g is the one whose
+    out-of-core ranks step b computed. Returns the disk path's kernel
+    launches."""
+    import shutil
+    budget = int(args.disk_budget_mb * 1e6)
+    rss_limit = max(96_000_000, budget)        # bench_disk's floor
+    n_edges = int(4.2 * budget / 41)           # ~41 bytes an edge on disk
+    max_id = max(100_000, n_edges // 30)
+    chunk = 100_000
+    max_part = max(50_000, int(budget / (30 * 41)))
+    work = os.path.join(ROOT, "build", "disk_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dbdir, crash_dir = os.path.join(work, "db"), os.path.join(work, "crash")
+    log(f"phase 9 the disk tier: bench_disk.py's configuration, a "
+        f"{budget / 1e6:.0f} MB budget, {n_edges} edges over {max_id} "
+        f"vertex ids; the store on {filesystem_of(work)}")
+    pinned = pin_mmap_threshold()
+    # a baseline peak above the current RSS would hide growth up to the
+    # difference from the delta: both are logged
+    base_peak, base_now = peak_rss_bytes(), current_rss_bytes()
+    log(f"  baseline RSS {base_now / 1e6:.1f} MB (peak so far "
+        f"{base_peak / 1e6:.1f} MB); M_MMAP_THRESHOLD pinned: {pinned}")
+
+    # a. build
+    rng = np.random.default_rng(7)
+    probes = []
+    db = core.GraphDB.create(
+        dbdir, max_id=max_id - 1, n_partitions=64, n_levels=3, branching=4,
+        buffer_cap=min(chunk, max_part // 2), max_partition_edges=max_part,
+        persist_min_edges=4096, resident_budget_bytes=budget // 8)
+
+    def build():
+        inserted = 0
+        while inserted < n_edges:
+            m = min(chunk, n_edges - inserted)
+            src = rng.integers(0, max_id, m)
+            dst = rng.integers(0, max_id, m)
+            db.insert_edges(src, dst)
+            if len(probes) < 500:
+                probes.extend(zip(src[:25].tolist(), dst[:25].tolist()))
+            inserted += m
+            if inserted % (chunk * 10) == 0:
+                db.checkpoint()
+        db.checkpoint()
+
+    clock("9a build", build)
+    parts = db._disk_partitions()
+    on_disk = sum(p.nbytes() for p in parts)
+    resident = db.resident_nbytes()
+    rss_a = peak_rss_bytes() - base_peak
+    res = {"budget_bytes": budget, "n_edges": int(db.n_edges),
+           "disk_partitions": len(parts), "on_disk_bytes": on_disk,
+           "resident": resident, "peak_rss_delta_build": rss_a}
+    del parts
+    log(f"  9a: {db.n_edges} edges, {res['disk_partitions']} disk "
+        f"partitions, {on_disk} bytes on disk ({on_disk / budget:.2f}x the "
+        f"budget), pinned index {resident['pinned_index']} bytes, peak RSS "
+        f"delta {rss_a / 1e6:.1f} MB")
+    check(on_disk >= 4 * budget,
+          f"9a: {on_disk} bytes on disk, under 4x the {budget}-byte budget")
+
+    # b. out-of-core PageRank
+    db.evict()
+    ranks = clock("9b pagerank_out_of_core (5 iterations)",
+                  core.pagerank_out_of_core, db.tree, n_iters=5,
+                  evict_each=True)
+    rss_ab = peak_rss_bytes() - base_peak
+    res["peak_rss_delta"] = rss_ab
+    res["peak_rss_over_current_baseline"] = peak_rss_bytes() - base_now
+    log(f"  9b: rank sum {float(ranks.sum()):.1f}; peak RSS delta of a and "
+        f"b {rss_ab / 1e6:.1f} MB against {rss_limit / 1e6:.0f} MB (over "
+        f"the baseline's current RSS: "
+        f"{res['peak_rss_over_current_baseline'] / 1e6:.1f} MB)")
+    check(bool(np.all(np.isfinite(ranks))), "9b: non-finite ranks")
+    check(rss_ab <= rss_limit,
+          f"9b: peak RSS delta {rss_ab} bytes over the {rss_limit}-byte "
+          "budget")
+
+    # c. close and reopen
+    before = db.to_coo()
+    clock("9c close", db.close)
+    db = clock("9c GraphDB.open", core.GraphDB.open, dbdir)
+    check(same_coo(db.to_coo(), before), "9c: to_coo changed across reopen")
+    check(disk_probes_ok(db, probes), "9c: a probe edge is missing")
+    log(f"  9c: reopened bitwise ({before[0].shape[0]} edges), "
+        f"{len(probes)} probe edges found both ways")
+    del before
+
+    # e. dense queries on the card over the reopened store
+    seeds = np.random.default_rng(args.seed + 20).choice(max_id, 256,
+                                                         replace=False)
+    clock("9e dense_plan of the store (host build from the memmaps + upload "
+          "+ layout)", core.dense_plan, db, "out", device=dev)
+    fe_ops.launches = 0                        # the disk path's hops...
+    dense = clock("9e two_hop_counts dense (256 seeds)", core.two_hop_counts,
+                  db, seeds, dense="kernel", device=dev)
+    kd = clock("9e khop dense k=3 (64 seeds)", core.khop, db, seeds[:64], 3,
+               dense="kernel", device=dev)
+    fe_launches = fe_ops.launches              # ...end here
+    check(fe_launches > 0, "9e: the disk path launched no frontier_expand")
+    sparse = clock("9e two_hop_counts sparse (256 seeds)",
+                   core.two_hop_counts, db, seeds, dense="never")
+    ks = clock("9e khop sparse k=3 (64 seeds)", core.khop, db, seeds[:64], 3,
+               dense="never")
+    check(same_two_hop(dense, sparse), "9e two_hop_counts: dense != sparse")
+    check(same_levels(kd, ks), "9e khop: dense != sparse")
+    src, dst = db.to_coo()
+    pal = clock("9e GraphPAL.from_edges of to_coo()", core.GraphPAL.from_edges,
+                src, dst, n_partitions=64, max_id=max_id - 1)
+    check(same_two_hop(core.two_hop_counts(pal, seeds, dense="kernel",
+                                           device=dev), dense),
+          "9e two_hop_counts: the store != its GraphPAL")
+    check(same_levels(core.khop(pal, seeds[:64], 3, dense="kernel",
+                                device=dev), kd),
+          "9e khop: the store != its GraphPAL")
+    log(f"  9e: two_hop {dense.ids.shape[0]} pairs, khop levels "
+        f"{[int(lv.shape[0]) for lv in kd.levels]}; dense == sparse == the "
+        f"GraphPAL's, bitwise; {fe_launches} frontier_expand launches")
+    del dense, sparse, kd, ks
+
+    # f. PSW on the card
+    dg = clock("9f GraphDB.snapshot", db.snapshot, device=dev)
+    dg_pal = clock("9f build_device_graph(GraphPAL)", core.build_device_graph,
+                   pal, device=dev)
+    check(same_device_graph(torch, dg, dg_pal),
+          "9f: the snapshot != the GraphPAL's DeviceGraph")
+    del dg_pal, pal
+    pr = {mode: clock(f"9f pagerank_device {mode} (5 iterations)",
+                      core.pagerank_device, dg, 5, mode=mode)
+          for mode in PR_MODES}
+    check(torch.equal(pr["dense_gather"], pr["psw_windows"]),
+          "9f pagerank_device: dense_gather != psw_windows")
+    got = pr["dense_gather"].reshape(-1).double().cpu().numpy()
+    err = float(np.abs(got - ranks).max())
+    check(bool(np.allclose(got, ranks, rtol=1e-4, atol=1e-4)),
+          f"9f: snapshot PageRank vs out-of-core: max abs err {err}")
+    res["pagerank_max_abs_err_vs_out_of_core"] = err
+    log(f"  9f: snapshot bitwise equal to the GraphPAL's in every array "
+        f"({dg.n_edges} edges, {dg_bytes(dg) / 2**30:.2f} GiB); PageRank "
+        f"modes bitwise equal, max abs err vs step b's out-of-core ranks "
+        f"{err:.3e} (rtol/atol 1e-4)")
+    del dg, pr, got
+
+    # g. aggregation
+    x = randn(torch, (max_id, 128), dev, args.seed + 21)
+    ps.ops.launches = 0                        # the disk path's aggregation...
+    y = clock("9g psw_spmm_edges over the store's edges (F=128)",
+              ps.psw_spmm_edges, src, dst, x, max_id)
+    ps_launches = ps.ops.launches              # ...ends here
+    check(ps_launches > 0, "9g: the disk path launched no psw_spmm")
+    si, di = torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev)
+    del src, dst
+    for oracle, tol in ((x, 1e-5), (x.double(), 1e-4)):
+        want = ps.spmm_dense_torch(si, di, oracle, max_id)
+        ok, err, ratio = row_tolerance(y, want, tol, tol)
+        check(ok, f"9g psw_spmm vs the {want.dtype} edge oracle: max abs err "
+                  f"{err}, {ratio:.2f}x the rowwise tolerance {tol}")
+        res[f"psw_spmm_max_abs_err_vs_{str(want.dtype)[6:]}"] = err
+        del want
+    log(f"  9g: psw_spmm within rowwise 1e-5 of the float32 edge oracle "
+        f"(max abs err {res['psw_spmm_max_abs_err_vs_float32']:.3e}) and "
+        f"1e-4 of float64 ({res['psw_spmm_max_abs_err_vs_float64']:.3e}); "
+        f"{ps_launches} psw_spmm launches")
+    del x, y, si, di
+
+    # d. crash recovery (bench_disk.py's)
+    s2, d2 = rng.integers(0, max_id, 20_000), rng.integers(0, max_id, 20_000)
+    n_before = db.n_edges
+    db.insert_edges(s2, d2)
+    acked = db.n_edges
+    live = db.to_coo()
+    db.tree.wal_flush()
+    shutil.copytree(dbdir, crash_dir)
+    db.close()
+    db = clock("9d GraphDB.open of the copy (WAL tail replayed)",
+               core.GraphDB.open, crash_dir)
+    check(acked == n_before + 20_000 and db.n_edges == acked,
+          f"9d: {db.n_edges} edges recovered of {acked} acknowledged")
+    check(same_coo(db.to_coo(), live), "9d: to_coo differs after recovery")
+    log(f"  9d: {acked} acknowledged edges recovered bitwise from a copy "
+        "taken while the store was live")
+    db.close()
+    del live, db
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches = {"frontier_expand": fe_launches, "psw_spmm": ps_launches}
+    log("disk path: " + json.dumps(launches) + " launches; "
+        + json.dumps(res))
+    return launches
+
+
 def build_kernels(common, kernels) -> None:
     """Build every kernel's library at once (one nvcc each, all started
     together), load them, then print ptxas's register and spill report."""
@@ -1203,6 +1488,7 @@ def main() -> None:
     ap.add_argument("--bags", type=int, default=16384)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--disk-budget-mb", type=float, default=96.0)
     args = ap.parse_args()
 
     import torch
@@ -1232,6 +1518,7 @@ def main() -> None:
                            eb_kernel])
 
     clock = Clock(torch)
+    disk_launches = phase_disk(torch, core, fe_ops, ps, dev, args, clock)
     phase_small(core, dev, args.seed)
 
     torch.cuda.reset_peak_memory_stats()
@@ -1307,6 +1594,9 @@ def main() -> None:
                      "src/repro/kernels/flash_attention/flash_attention.py:69",
                      fa_launches, fa_main, fa_shapes),
     ]
+    for entry in kernels:
+        if entry["name"] in disk_launches:
+            entry["disk_path_launches"] = disk_launches[entry["name"]]
     log("phase seconds: " + json.dumps(clock.seconds))
     log(json.dumps({"kernels": kernels}))
 

@@ -1,5 +1,7 @@
-"""GraphChi-DB core, ported: PAL + LSM + multi-hop queries + PSW analytics
-(the disk, service and shard tiers are not ported yet)."""
+"""GraphChi-DB core, ported: PAL + LSM + the on-disk tier (partition files,
+`GraphDB`, the segmented WAL, the Elias-Gamma codec, failpoints and
+integrity checks) + multi-hop queries + PSW analytics (the service and
+shard tiers are not ported yet)."""
 from .pal import (
     EdgePartition,
     GraphPAL,
@@ -14,8 +16,46 @@ from .pal import (
     run_from_partition,
     sorted_run_index,
 )
+from .failpoints import (
+    CATALOG,
+    CRASH_EXIT_CODE,
+    FailpointError,
+    failpoint,
+    fp_armed,
+    fp_clear,
+    fp_hits,
+    fp_set,
+    fp_trace,
+)
+from .integrity import (
+    CKSUM_ALGO,
+    CRC_ALGO,
+    CorruptionError,
+    DeadlineExceeded,
+    GraphDBError,
+    OverloadError,
+    ReadOnlyError,
+    RecoveryError,
+    WALCorruptionError,
+    WALGapError,
+    checksum32,
+    crc32,
+    fsync_dir,
+    record_checksum,
+)
 from .lsm import BufferStaging, EdgeBuffer, LSMStats, LSMTree, MergeTxn
 from .manifest import EpochGuard, LevelManifest, ManifestPartition, ManifestView
+from .disk import (
+    DiskPartition,
+    GraphDB,
+    IOStats,
+    PartitionStore,
+    RawDiskIndex,
+    SparseDiskIndex,
+    open_partition_file,
+    partition_digest,
+    write_partition_file,
+)
 from .engine import (
     EdgeBatch,
     EdgeChunk,
@@ -26,6 +66,7 @@ from .engine import (
     StorageEngine,
     as_engine,
 )
+from .walog import SegmentedWAL
 from . import telemetry
 from .telemetry import (
     REGISTRY,
@@ -67,4 +108,15 @@ from .query import (
     shortest_path,
     shortest_path_perhop,
     traverse_out,
+)
+from .codec import (
+    BlockedGammaPointer,
+    GammaChunkedIndex,
+    SparseIndex,
+    decode_monotonic,
+    decode_monotonic_blocked,
+    elias_gamma_decode,
+    elias_gamma_encode,
+    encode_monotonic,
+    encode_monotonic_blocked,
 )

@@ -123,8 +123,11 @@ def prepare_rows(src, dst, n_nodes: int, block: int = 128,
     dev = _resolve_device(device, "prepare_rows")
     if n_nodes >= 2**31:
         raise ValueError(f"{n_nodes} nodes: source ids are int32")
-    s = torch.as_tensor(np.asarray(src), dtype=torch.int64).to(dev)
-    d = torch.as_tensor(np.asarray(dst), dtype=torch.int64).to(dev)
+    # torch.tensor copies: a read-only array (a partition file's memmap)
+    # is never aliased, so evicting its mapping cannot pull it from under
+    # a tensor
+    s = torch.tensor(np.asarray(src), dtype=torch.int64, device=dev)
+    d = torch.tensor(np.asarray(dst), dtype=torch.int64, device=dev)
     if s.shape != d.shape or s.dim() != 1:
         raise ValueError(f"src {tuple(s.shape)} and dst {tuple(d.shape)} "
                          "must be one-dimensional and of one length")

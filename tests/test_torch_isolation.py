@@ -32,7 +32,9 @@ def test_every_module_imports_without_jax_or_repro():
                  "kernels.embedding_bag.kernel", "kernels.embedding_bag.ops",
                  "kernels.embedding_bag.ref", "models.transformer",
                  "configs.granite_3_2b", "configs.granite_34b",
-                 "configs.qwen3_14b", "launch.serve"):
+                 "configs.qwen3_14b", "launch.serve", "core.failpoints",
+                 "core.integrity", "core.codec", "core.walog", "core.disk",
+                 "checkpoint", "checkpoint.manager"):
         assert "repro_torch." + name in mods, name
     code = (
         "import sys\n"

@@ -16,7 +16,9 @@ plain version in float32 (TestFlashAttention's tolerance: the fp32 SIMT
 kernel and cuBLAS sum in another order) and 2e-2 in bfloat16 (test_bf16's:
 the kernel rounds P to bf16 for P·V, on wgmma + TMA); embedding_bag is bitwise (both add
 w·row in slot order, rounded twice in fp32; where a row holds inf or NaN, the NaN
-columns are compared as a mask, since NaN != NaN)."""
+columns are compared as a mask, since NaN != NaN). A small reopened on-disk
+`GraphDB`'s dense hops and snapshot on the card are bitwise equal to
+`device="cpu"`."""
 import numpy as np
 import pytest
 import torch
@@ -529,3 +531,42 @@ def test_embedding_bag_refused_launch_raises(cuda):
     assert tuple(empty.shape) == (0, 8)
     with pytest.raises(TypeError):
         eb.embedding_bag(idx, w, table[:, :8].bfloat16())
+
+
+def test_reopened_graphdb_dense_hops_and_snapshot_on_the_card(cuda,
+                                                              tmp_path):
+    """A small GraphDB built on disk, closed and reopened: its dense
+    two_hop and khop on the card (frontier_expand) are bitwise equal to
+    `device="cpu"` (the plain version), and its snapshot's arrays and
+    PageRank on the card equal the CPU snapshot's."""
+    from repro_torch.core import GraphDB, khop, two_hop_counts
+    rng = np.random.default_rng(17)
+    path = str(tmp_path / "db")
+    db = GraphDB.create(path, max_id=4999, n_partitions=16, n_levels=3,
+                        branching=4, buffer_cap=2000, max_partition_edges=8000,
+                        persist_min_edges=512)
+    for _ in range(5):
+        db.insert_edges(rng.integers(0, 5000, 6000),
+                        rng.integers(0, 5000, 6000))
+    db.close()
+    db = GraphDB.open(path)
+    db.insert_edges(rng.integers(0, 5000, 500), rng.integers(0, 5000, 500))
+    assert db._disk_partitions()
+    seeds = rng.choice(5000, 96, replace=False)
+    n0 = ops.launches
+    on_card = two_hop_counts(db, seeds, dense="kernel", device=cuda)
+    assert ops.launches > n0
+    plain = two_hop_counts(db, seeds, dense="kernel", device="cpu")
+    for f in ("offsets", "ids", "counts"):
+        assert np.array_equal(getattr(on_card, f), getattr(plain, f)), f
+    kc = khop(db, seeds[:8], 3, dense="kernel", device=cuda)
+    kp = khop(db, seeds[:8], 3, dense="kernel", device="cpu")
+    assert len(kc.levels) == len(kp.levels)
+    assert all(np.array_equal(a, b) for a, b in zip(kc.levels, kp.levels))
+    dg, dh = db.snapshot(device=cuda), db.snapshot(device="cpu")
+    for f in ("src", "dst_local", "mask", "outdeg", "send_idx", "edge_owner",
+              "edge_slot", "seg_ptr"):
+        assert torch.equal(getattr(dg, f).cpu(), getattr(dh, f)), f
+    for mode in ("dense_gather", "psw_windows"):
+        assert torch.equal(psw.pagerank_device(dg, 5, mode=mode).cpu(),
+                           psw.pagerank_device(dh, 5, mode=mode))
