@@ -2,14 +2,16 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--vertices N] [--edges N] [--seed S]
-                          [--disk-budget-mb MB]
+                          [--disk-budget-mb MB] [--service-vertices N]
+                          [--service-edges N]
 
 Run from the root of a checkout: the port is imported from `src/`, and its
 CUDA kernels are built from the checkout's sources into `build/kernels/` at
 first use (one nvcc per kernel, all started together). The main path is the
 graph store read by multi-hop queries and analysed by PSW. Phase 9, the
 disk tier, runs first, right after the build, while the process's peak RSS
-is still its baseline; phases 0-8 follow:
+is still its baseline; phases 0-8 follow, and phase 10, the service and
+shard tiers, runs last:
 
   9. the disk tier at benchmarks/bench_disk.py's scale-1.0 configuration
      (a 96 MB data budget; --disk-budget-mb sets it, and with it the edge
@@ -92,7 +94,35 @@ is still its baseline; phases 0-8 follow:
      and the F.embedding_bag yardstick; then, at B = 64, ids of V and -1
      must raise ValueError (and the next call be bitwise again), and, at
      B = 64 and 4,096, a padding row holding inf or NaN must give the
-     plain version's NaN columns.
+     plain version's NaN columns;
+ 10. the service and shard tiers at benchmarks/bench_shard.py's scale-1.0
+     configuration (--service-vertices and --service-edges shrink it):
+     200,000 vertex ids, 3,000,000 power-law edges (seed 8) in 16 insert
+     batches and 50 deletes, stores of 8 intervals, 2 levels, branching 8,
+     in `build/service_phase/` (removed at the end). (a) The op prefix into
+     a pipelined `ServiceDB`, checkpointed, its view held to d; (b) as
+     bench_service.py's contended section, a writer streams 300,000 more
+     edges (seed 9, 10,000 a batch, 60,000 edges/s) while the maintenance
+     pipeline merges, and two reader threads each pin a `read_view()`
+     (before the writer starts, then after half its edges) and run
+     `two_hop_counts(dense="kernel")` on 256 seeds and `khop(dense=
+     "kernel", k=3)` on 64, bitwise against the sparse host path on the
+     same view, the dense plan's builds counted; (c) a `FrontDesk` in front
+     of it serves the edge part of the LinkBench mix (out_neighbors,
+     getrange, insert) and fof from 8 client threads under
+     bench_chaos.py's budgets (none may complete late without a typed
+     error), then, quiesced, fof for 256 seeds through it equals the dense
+     kernel's on a view of the same publication; (d) a 4-shard
+     `ShardRouter` (spawned workers that load neither jax nor the reference
+     and make no CUDA context) fed the op prefix equals the view of (a)
+     bitwise (n_edges, out_neighbors of 512 ids, khop levels, FoF counts),
+     as do the dense kernel's answers on that view, then 8 client threads
+     read it for 5 s; (e) a `begin_snapshot()` session opened with
+     `Snapshot.open`: its `snapshot()` on the card bitwise equal to a
+     `GraphPAL`'s, PageRank modes bitwise equal, `psw_spmm_edges` at
+     F = 128 within rowwise 1e-5 of the float64 edge oracle (the float32
+     oracle, `index_add_` over the hub's 877,000 in-edges one at a time,
+     misses float64 itself by several times that; its distance is logged).
 
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 1-2 for frontier_expand, phase 6's aggregation calls for
@@ -100,7 +130,9 @@ segment_ell and psw_spmm, phase 7's `serve_requests` for flash_attention,
 phase 8's lookups for embedding_bag) and read just after; the disk path's
 own counts (phase 9's dense calls on the store for frontier_expand, its
 `psw_spmm_edges` for psw_spmm) are logged on the `disk path:` line and
-given as `disk_path_launches` in the kernels line. Any failed check exits
+given as `disk_path_launches` in the kernels line; phase 10's (its dense
+hops in b-d for frontier_expand, e's `psw_spmm_edges` for psw_spmm) on the
+`service path:` line and as `service_path_launches`. Any failed check exits
 non-zero. The
 second-to-last line is the card's name and power limit from nvidia-smi;
 the last line is
@@ -115,6 +147,7 @@ import os
 import resource
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -1437,6 +1470,527 @@ def phase_disk(torch, core, fe_ops, ps, dev, args, clock) -> dict:
     return launches
 
 
+# benchmarks/bench_shard.py's per-store configuration (`_db_kw`)
+SERVICE_DB_KW = dict(n_partitions=8, n_levels=2, branching=8,
+                     buffer_cap=50_000, max_partition_edges=16_000_000,
+                     persist_min_edges=4096, checkpoint_interval_ops=10 ** 9,
+                     wal_tail_budget_bytes=1 << 40)
+# benchmarks/bench_chaos.py's request budgets and its client-side slack for
+# "completed past the deadline without a typed error"
+READ_DEADLINE_S, INSERT_DEADLINE_S, LATE_TOL_S = 0.25, 1.0, 0.025
+FRONTDESK_REQUESTS = 4_000
+
+
+def service_op_prefix(n_vertices: int, n_edges: int):
+    """benchmarks/bench_shard.py's `_op_prefix` at its batch size: the
+    power-law edges of seed 8 in 16 insert batches, then 50 deletes of
+    edges known to be present."""
+    batch = max(10_000, n_edges // 16)
+    src, dst = power_law_graph(n_vertices, n_edges, seed=8)
+    batches = [(src[i:i + batch], dst[i:i + batch])
+               for i in range(0, n_edges, batch)]
+    deletes = [(int(src[i]), int(dst[i]))
+               for i in range(0, min(n_edges, 50 * 97), 97)]
+    return batches, deletes
+
+
+def ingest(store, batches, deletes) -> None:
+    for s, d in batches:
+        store.insert_edges(s, d)
+    for s, d in deletes:
+        store.delete_edge(s, d)
+
+
+def quiesce(svc, timeout_s: float = 120.0) -> None:
+    """benchmarks/bench_service.py's `_quiesce`: wait until the
+    maintenance pipeline has drained the backlog."""
+    t_end = time.perf_counter() + timeout_s
+    while ((svc.tree.total_buffered() > svc.tree.buffer_cap
+            or svc.tree.inflight_edges()) and time.perf_counter() < t_end):
+        time.sleep(0.02)
+
+
+def percentiles(ms) -> dict:
+    if not ms:
+        return {"n": 0}
+    a = np.asarray(ms, np.float64)
+    return {"n": int(a.size), "p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99)), "max": float(a.max())}
+
+
+class PlanBuilds:
+    """Counts and times the dense plan's builds from any thread: the host
+    ELL (`build_frontier_plan`) and its upload and layout on the card
+    (`plan_to_device`), wrapped where `multihop.dense_plan` imports them
+    at call time. `restore()` puts the originals back."""
+
+    def __init__(self, fe):
+        self.fe, self.lock = fe, threading.Lock()
+        self.orig = (fe.build_frontier_plan, fe.plan_to_device)
+        self.builds, self.build_s, self.upload_s = 0, 0.0, 0.0
+        fe.build_frontier_plan = self._timed(self.orig[0], "build_s")
+        fe.plan_to_device = self._timed(self.orig[1], "upload_s")
+
+    def _timed(self, fn, field):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            with self.lock:
+                setattr(self, field, getattr(self, field)
+                        + time.perf_counter() - t0)
+                self.builds += field == "build_s"
+            return out
+        return run
+
+    def restore(self) -> None:
+        self.fe.build_frontier_plan, self.fe.plan_to_device = self.orig
+
+
+def timed(torch, dev, fn, *a, **kw):
+    """(result, host seconds ending in a synchronize of `dev`)."""
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def service_reads(torch, core, svc, dev, n_vertices, n_write, seed):
+    """Step 10b, as bench_service.py's `contended` section: a writer
+    thread streams `n_write` power-law edges (seed 9) in 10,000-edge
+    batches, paced at bench_service's 60,000 edges/s, while the
+    maintenance pipeline merges; two reader threads each pin a
+    `read_view()` and run dense `two_hop_counts` (256 seeds) and `khop`
+    (64 seeds, k = 3) on the card, each checked bitwise against the sparse
+    host path on the same view. The readers pin a first view before the
+    writer starts and a second after it has written half its edges; each
+    half of the writes starts as the readers pin, so both rounds' queries
+    run while it writes."""
+    ws, wd = power_law_graph(n_vertices, n_write, seed=9)
+    step, rate = 10_000, 60_000
+    barrier = threading.Barrier(3, timeout=900)
+    half_written = threading.Event()
+    errors, rounds, writes = [], [], []
+
+    def writer():
+        try:
+            cut = (n_write // step // 2) * step
+            for lo, hi in ((0, cut), (cut, n_write)):
+                barrier.wait()
+                t0 = time.perf_counter()
+                for i in range(lo, hi, step):
+                    svc.insert_edges(ws[i:min(i + step, hi)],
+                                     wd[i:min(i + step, hi)])
+                    ahead = (min(i + step, hi) - lo) / rate - (
+                        time.perf_counter() - t0)
+                    if ahead > 0:
+                        time.sleep(ahead)
+                writes.append((t0, time.perf_counter(), hi - lo))
+                half_written.set()
+        except threading.BrokenBarrierError:
+            pass
+        except Exception as exc:  # noqa: BLE001 - reported by the caller
+            errors.append(f"writer: {exc!r}")
+            barrier.abort()
+
+    def reader(i):
+        rng = np.random.default_rng(seed + i)
+        seeds = rng.choice(n_vertices, 256, replace=False)
+        try:
+            for rnd in range(2):
+                if rnd:
+                    half_written.wait(900)
+                with svc.read_view() as view:
+                    barrier.wait()
+                    rec = {"reader": i, "round": rnd,
+                           "version": int(view.version),
+                           "n_edges": int(view.n_edges)}
+                    t0 = time.perf_counter()
+                    _, rec["plan_s"] = timed(torch, dev, core.dense_plan,
+                                             view, "out", device=dev)
+                    d2, rec["two_hop_dense_s"] = timed(
+                        torch, dev, core.two_hop_counts, view, seeds,
+                        dense="kernel", device=dev)
+                    dk, rec["khop_dense_s"] = timed(
+                        torch, dev, core.khop, view, seeds[:64], 3,
+                        dense="kernel", device=dev)
+                    rec["dense_window"] = (t0, time.perf_counter())
+                    s2, rec["two_hop_sparse_s"] = timed(
+                        torch, dev, core.two_hop_counts, view, seeds)
+                    sk, rec["khop_sparse_s"] = timed(
+                        torch, dev, core.khop, view, seeds[:64], 3)
+                rec["pairs"] = int(d2.ids.shape[0])
+                rec["khop_levels"] = [int(lv.shape[0]) for lv in dk.levels]
+                rec["bitwise"] = bool(same_two_hop(d2, s2)
+                                      and same_levels(dk, sk))
+                rounds.append(rec)
+        except threading.BrokenBarrierError:
+            errors.append(f"reader {i}: the barrier broke")
+        except Exception as exc:  # noqa: BLE001 - reported by the caller
+            errors.append(f"reader {i}: {exc!r}")
+            barrier.abort()
+            half_written.set()
+
+    threads = [threading.Thread(target=writer)] + [
+        threading.Thread(target=reader, args=(i,)) for i in range(2)]
+    flushes0 = svc.stats.flushes
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, "10b: " + "; ".join(errors))
+    check(len(rounds) == 4 and all(r["bitwise"] for r in rounds),
+          "10b: a dense answer on a live view != the sparse host path: "
+          + json.dumps([{k: r[k] for k in ("reader", "round", "bitwise")}
+                        for r in rounds]))
+    by_round = [sorted({r["version"] for r in rounds if r["round"] == k})
+                for k in range(2)]
+    check(min(by_round[1]) > max(by_round[0]),
+          f"10b: the second views {by_round[1]} are not later publications "
+          f"than the first {by_round[0]}")
+    busy = sum(t1 - t0 for t0, t1, _ in writes)
+    for r in rounds:                      # dense seconds overlapping writes
+        a, b = r.pop("dense_window")
+        r["dense_s_while_writing"] = sum(max(0.0, min(b, t1) - max(a, t0))
+                                         for t0, t1, _ in writes)
+    return {"writer_edges": n_write,
+            "writer_edges_per_s": n_write / busy if busy else None,
+            "flushes_during": svc.stats.flushes - flushes0,
+            "publications_served_dense": sorted(
+                {r["version"] for r in rounds}),
+            "rounds": rounds}
+
+
+def frontdesk_clients(core, data, fd, n_vertices, n_requests, seed):
+    """Step 10c's traffic: the edge part of the LinkBench mix
+    (`edge_outnbrs` -> out_neighbors, `edge_getrange` -> getrange,
+    `edge_insert_or_update` -> insert) with a fof request after every 19,
+    from 8 closed-loop client threads, each request under bench_chaos.py's
+    budget. Classified as there; a result delivered past its deadline by
+    more than LATE_TOL_S without a typed error is counted as late."""
+    ops = {"edge_outnbrs": "out_neighbors", "edge_getrange": "getrange",
+           "edge_insert_or_update": "insert"}
+    wl = data.LinkBenchWorkload(data.LinkBenchConfig(n_vertices=n_vertices,
+                                                     seed=seed))
+    reqs = []
+    for r in wl.requests(4 * n_requests):
+        if r["op"] in ops:
+            reqs.append((ops[r["op"]], r["u"], r.get("v")))
+            if len(reqs) % 20 == 19:
+                reqs.append(("fof", r["v"], None))
+        if len(reqs) >= n_requests:
+            break
+    lock = threading.Lock()
+    tally = {"ok": 0, "typed_deadline": 0, "late_untyped": 0,
+             "other_errors": [], "sheds": {}, "by_op": {}}
+    lat_ms = {}
+
+    def client(part):
+        mine = []
+        for op, u, v in part:
+            budget = INSERT_DEADLINE_S if op == "insert" else READ_DEADLINE_S
+            dl = core.Deadline.after(budget)
+            t0 = time.perf_counter()
+            outcome = "ok"
+            try:
+                if op == "insert":
+                    fut = fd.submit("insert", deadline=dl,
+                                    src=np.asarray([u], np.int64),
+                                    dst=np.asarray([v], np.int64))
+                else:
+                    fut = fd.submit(op, deadline=dl, v=u)
+                fut.result(timeout=120)
+            except core.OverloadError as exc:
+                outcome = "shed:" + exc.reason
+            except core.DeadlineExceeded:
+                outcome = "typed_deadline"
+            except Exception as exc:  # noqa: BLE001 - reported below
+                outcome = f"error:{exc!r}"
+            el = time.perf_counter() - t0
+            mine.append((op, outcome, el, budget))
+        with lock:
+            for op, outcome, el, budget in mine:
+                per = tally["by_op"].setdefault(op, {})
+                per[outcome.split(":")[0]] = per.get(
+                    outcome.split(":")[0], 0) + 1
+                if outcome == "ok":
+                    tally["ok"] += 1
+                    lat_ms.setdefault(op, []).append(el * 1e3)
+                    tally["late_untyped"] += el > budget + LATE_TOL_S
+                elif outcome == "typed_deadline":
+                    tally["typed_deadline"] += 1
+                elif outcome.startswith("shed:"):
+                    why = outcome[5:]
+                    tally["sheds"][why] = tally["sheds"].get(why, 0) + 1
+                else:
+                    tally["other_errors"].append(outcome)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(reqs[i::8],))
+               for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    tally["requests"] = len(reqs)
+    tally["completed_per_s"] = tally["ok"] / wall
+    tally["latency_ms"] = percentiles([x for v in lat_ms.values()
+                                       for x in v])
+    tally["latency_ms_by_op"] = {op: percentiles(v)
+                                 for op, v in sorted(lat_ms.items())}
+    tally["other_errors"] = tally["other_errors"][:5]
+    return tally
+
+
+def phase_service(torch, core, fe, fe_ops, ps, dev, args, clock) -> dict:
+    """Phase 10, the service tier, at benchmarks/bench_shard.py's scale-1.0
+    configuration (--service-vertices and --service-edges set its size):
+    a live `ServiceDB` whose readers run dense hops on the card while its
+    writer and merges run (10b), a `FrontDesk` in front of it (10c), a
+    4-shard `ShardRouter` held bitwise against it (10d), and a `Snapshot`
+    session analysed on the card (10e). Returns the phase's kernel
+    launches: frontier_expand over 10b-10d, psw_spmm in 10e."""
+    import shutil
+    from repro_torch import data
+    t_phase = time.perf_counter()
+    n, e = args.service_vertices, args.service_edges
+    work = os.path.join(ROOT, "build", "service_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    log(f"phase 10 the service tier: bench_shard.py's configuration, {e} "
+        f"power-law edges over {n} vertex ids, 4 shards; the stores on "
+        f"{filesystem_of(work)}")
+    batches, deletes = service_op_prefix(n, e)
+
+    # a. build
+    svc = core.ServiceDB.create(os.path.join(work, "svc"), max_id=n - 1,
+                                **SERVICE_DB_KW)
+    clock("10a ServiceDB ingest (the op prefix)", ingest, svc, batches,
+          deletes)
+    res = {"ingest_edges_per_s": e / clock.seconds[
+        "10a ServiceDB ingest (the op prefix)"]}
+    clock("10a checkpoint + quiesce",
+          lambda: (svc.checkpoint(), quiesce(svc)))
+    v0 = svc.read_view()              # the op prefix's state, held to 10d
+    log(f"  10a: {v0.n_edges} edges at publication {v0.version}, ingest "
+        f"{res['ingest_edges_per_s']:.0f} edges/s")
+
+    # b. dense reads under a writer
+    plans = PlanBuilds(fe)
+    fe_ops.launches = 0                        # the service path's hops...
+    try:
+        reads = clock("10b dense reads on live views under a writer",
+                      service_reads, torch, core, svc, dev, n, e // 10,
+                      args.seed + 40)
+    finally:
+        plans.restore()
+    res["reads"] = reads
+    res["plan_builds_10b"] = plans.builds
+    res["plan_build_s_10b"] = plans.build_s
+    res["plan_upload_s_10b"] = plans.upload_s
+    for r in reads["rounds"]:
+        log("  10b " + json.dumps(r))
+    log(f"  10b: writer {reads['writer_edges_per_s']:.0f} edges/s, "
+        f"{reads['flushes_during']} flushes; publications served dense "
+        f"{reads['publications_served_dense']}; {plans.builds} plan builds "
+        f"({plans.build_s:.3f} s host, {plans.upload_s:.3f} s upload + "
+        f"layout); {fe_ops.launches} frontier_expand launches so far")
+
+    # c. the front desk
+    fd = core.FrontDesk(svc, queue_cap=1024, max_batch=256)
+    try:
+        traffic = clock("10c FrontDesk: LinkBench edge mix + fof, 8 clients",
+                        frontdesk_clients, core, data, fd, n,
+                        FRONTDESK_REQUESTS, args.seed + 60)
+        res["frontdesk"] = traffic
+        log("  10c " + json.dumps(traffic))
+        check(not traffic["other_errors"],
+              f"10c: untyped errors {traffic['other_errors']}")
+        check(traffic["late_untyped"] == 0,
+              f"10c: {traffic['late_untyped']} requests completed past "
+              "their deadline without a typed error")
+        check(traffic["ok"] > 0, "10c: no request completed")
+        clock("10c checkpoint + quiesce",
+              lambda: (svc.checkpoint(), quiesce(svc)))
+        seeds = np.random.default_rng(args.seed + 61).choice(n, 256,
+                                                             replace=False)
+        with svc.read_view() as view:
+            dense = clock("10c two_hop_counts dense on the quiesced view "
+                          "(256 seeds, plan build included)",
+                          core.two_hop_counts, view, seeds, dense="kernel",
+                          device=dev)
+            futs = [fd.submit("fof", v=int(v)) for v in seeds]
+            got = clock("10c fof through the FrontDesk (256 seeds)",
+                        lambda: [f.result(timeout=300) for f in futs])
+            with svc.read_view() as after:
+                same_pub = after.version == view.version
+        check(same_pub, "10c: the store published during the fof check")
+        check(all(np.array_equal(g, dense.ids[dense.slice_of(i)])
+                  for i, g in enumerate(got)),
+              "10c: FrontDesk fof != two_hop_counts dense on the card")
+        res["frontdesk"]["fd_stats"] = {
+            "batches": fd.stats.batches, "batched_ops": fd.stats.batched_ops,
+            "shed": fd.stats.shed, "deadline_misses":
+            fd.stats.deadline_misses}
+        log(f"  10c: fof for 256 seeds through the FrontDesk bitwise equal "
+            f"to the dense kernel's ({dense.ids.shape[0]} pairs); "
+            f"{json.dumps(res['frontdesk']['fd_stats'])}")
+    finally:
+        fd.close()
+
+    # d. shards
+    t0 = time.perf_counter()
+    with core.ShardRouter.create(os.path.join(work, "shards"), max_id=n - 1,
+                                 n_shards=4, **SERVICE_DB_KW) as router:
+        res["router_spawn_s"] = time.perf_counter() - t0
+        runtime = router.worker_runtime()
+        log(f"  10d: 4 shard workers up in {res['router_spawn_s']:.3f} s: "
+            + json.dumps(runtime))
+        check(all(rt["modules"] == ["torch"] and not rt["cuda_initialized"]
+                  for rt in runtime),
+              "10d: a shard worker loaded jax or the reference, or made a "
+              "CUDA context")
+        clock("10d ShardRouter ingest (the op prefix)", ingest, router,
+              batches, deletes)
+        res["router_ingest_edges_per_s"] = e / clock.seconds[
+            "10d ShardRouter ingest (the op prefix)"]
+        clock("10d checkpoint_all", router.checkpoint_all)
+        rng = np.random.default_rng(17)
+        sample = rng.integers(0, n, 512)
+        seeds = rng.integers(0, n, 64)
+        eq = {}
+        ref_eng = v0.storage_engine()
+        eq["n_edges"] = router.n_edges == v0.n_edges
+        vals, offs = ref_eng.out_neighbors_batch(sample)
+        eq["out_neighbors"] = all(
+            np.array_equal(np.sort(router.out_neighbors(int(v))),
+                           np.sort(vals[offs[i]:offs[i + 1]]))
+            for i, v in enumerate(sample))
+        with core.consistent_engine(router) as eng:
+            kh = clock("10d khop k=2 sharded (64 seeds)", core.khop, eng,
+                       seeds, 2)
+            fof = clock("10d two_hop_counts sharded (512 ids)",
+                        core.two_hop_counts, eng, sample)
+        kh_ref = core.khop(ref_eng, seeds, 2)
+        fof_ref = core.two_hop_counts(ref_eng, sample)
+        kh_dense = clock("10d khop k=2 dense on the unsharded view",
+                         core.khop, v0, seeds, 2, dense="kernel", device=dev)
+        fof_dense = clock("10d two_hop_counts dense on the unsharded view",
+                          core.two_hop_counts, v0, sample, dense="kernel",
+                          device=dev)
+        eq["khop_levels"] = same_levels(kh, kh_ref) and same_levels(
+            kh, kh_dense)
+        eq["fof_counts"] = same_two_hop(fof, fof_ref) and same_two_hop(
+            fof, fof_dense)
+        res["equality"] = eq
+        check(all(eq.values()), f"10d: sharded != unsharded: {eq}")
+        reads = clock("10d router reads: 8 client threads x 5 s",
+                      router_reads, router, n, 8, 5.0)
+        res["router_reads"] = reads
+        log(f"  10d: bitwise equal to the unsharded store and its dense "
+            f"kernel answers ({json.dumps(eq)}); router ingest "
+            f"{res['router_ingest_edges_per_s']:.0f} edges/s; reads "
+            + json.dumps(reads))
+    v0.release()
+    fe_launches = fe_ops.launches              # ...end here
+    check(fe_launches > 0, "phase 10 launched no frontier_expand")
+
+    # e. a snapshot session on the card
+    sess = clock("10e begin_snapshot", svc.begin_snapshot)
+    sess.close()
+    snap = clock("10e Snapshot.open", core.Snapshot.open, sess.dir)
+    dg = clock("10e Snapshot.snapshot on the card", snap.snapshot,
+               device=dev)
+    src, dst = snap.to_coo()
+    pal = core.GraphPAL.from_edges(src, dst, n_partitions=8, max_id=n - 1)
+    dg_pal = clock("10e build_device_graph(GraphPAL of to_coo())",
+                   core.build_device_graph, pal, device=dev)
+    check(same_device_graph(torch, dg, dg_pal),
+          "10e: the session's DeviceGraph != the GraphPAL's")
+    pr = {mode: clock(f"10e pagerank_device {mode} (5 iterations)",
+                      core.pagerank_device, dg, 5, mode=mode)
+          for mode in PR_MODES}
+    check(torch.equal(pr["dense_gather"], pr["psw_windows"])
+          and torch.equal(core.pagerank_device(dg_pal, 5), pr["dense_gather"]),
+          "10e pagerank_device: the modes or the GraphPAL's differ")
+    del dg_pal, pal, pr
+    x = randn(torch, (n, 128), dev, args.seed + 62)
+    ps.ops.launches = 0                        # the session's aggregation...
+    y = clock("10e psw_spmm_edges over the session's edges (F=128)",
+              ps.psw_spmm_edges, src, dst, x, n)
+    ps_launches = ps.ops.launches              # ...ends here
+    check(ps_launches > 0, "10e: the session launched no psw_spmm")
+    si, di = torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev)
+    # the float32 edge oracle adds the hub's in-edges (over a quarter of
+    # all edges) one at a time and misses float64 itself by several times
+    # the rowwise 1e-5, so the kernel is held to float64 at that tolerance
+    # (tighter than phase 9g's 1e-4); its distance from the float32 oracle
+    # and the oracle's own are logged
+    w32 = ps.spmm_dense_torch(si, di, x, n)
+    w64 = ps.spmm_dense_torch(si, di, x.double(), n)
+    ratios = {"oracle32_vs_float64": row_tolerance(w32, w64, 1e-5, 1e-5)[2]}
+    for name, want in (("float32", w32), ("float64", w64)):
+        _, err, ratios[f"kernel_vs_{name}"] = row_tolerance(y, want, 1e-5,
+                                                            1e-5)
+        res[f"psw_spmm_max_abs_err_vs_{name}"] = err
+    res["psw_spmm_rowwise_1e-5_ratios"] = ratios
+    check(ratios["kernel_vs_float64"] <= 1.0,
+          f"10e psw_spmm vs the float64 edge oracle: max abs err "
+          f"{res['psw_spmm_max_abs_err_vs_float64']}, "
+          f"{ratios['kernel_vs_float64']:.2f}x the rowwise tolerance 1e-5")
+    del w32, w64
+    log(f"  10e: the session's DeviceGraph ({dg.n_edges} edges) bitwise "
+        f"equal to the GraphPAL's, PageRank modes bitwise equal; psw_spmm "
+        f"within rowwise 1e-5 of float64 (max abs err "
+        f"{res['psw_spmm_max_abs_err_vs_float64']:.3e}; "
+        f"{res['psw_spmm_max_abs_err_vs_float32']:.3e} from the float32 "
+        f"oracle; in tolerances: {json.dumps(ratios)}); {ps_launches} "
+        "psw_spmm launches")
+    del x, y, si, di, dg
+    snap.close()
+    sess.release()
+    svc.close()
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches = {"frontier_expand": fe_launches, "psw_spmm": ps_launches}
+    res["phase_s"] = time.perf_counter() - t_phase
+    log("service path: " + json.dumps(launches) + " launches; "
+        + json.dumps({k: v for k, v in res.items()
+                      if k not in ("reads", "frontdesk")}))
+    return launches
+
+
+def router_reads(router, n_vertices: int, n_threads: int,
+                 duration_s: float) -> dict:
+    """bench_shard.py's `_read_phase`: client threads issue batched
+    out-neighbour reads of 512 random ids against the live router."""
+    barrier = threading.Barrier(n_threads)
+    out = [None] * n_threads
+
+    def worker(i):
+        rng = np.random.default_rng(800 + i)
+        eng = router.storage_engine()
+        lat, done = [], 0
+        barrier.wait()
+        t_end = time.perf_counter() + duration_s
+        while time.perf_counter() < t_end:
+            vs = rng.integers(0, n_vertices, 512)
+            t0 = time.perf_counter()
+            eng.out_neighbors_batch(vs)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            done += int(vs.shape[0])
+        out[i] = (lat, done)
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return {"vertices_per_s": sum(d for _, d in out) / duration_s,
+            "latency_ms": percentiles([x for lat, _ in out for x in lat])}
+
+
 def build_kernels(common, kernels) -> None:
     """Build every kernel's library at once (one nvcc each, all started
     together), load them, then print ptxas's register and spill report."""
@@ -1489,6 +2043,8 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--disk-budget-mb", type=float, default=96.0)
+    ap.add_argument("--service-vertices", type=int, default=200_000)
+    ap.add_argument("--service-edges", type=int, default=3_000_000)
     args = ap.parse_args()
 
     import torch
@@ -1567,6 +2123,11 @@ def main() -> None:
     eb_launches, eb_res = phase_bags(torch, dev, args, clock, eb_kernel)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB (since phase 7), " + host_memory())
+    torch.cuda.reset_peak_memory_stats()
+    service_launches = phase_service(torch, core, fe, fe_ops, ps, dev, args,
+                                     clock)
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB (phase 10), " + host_memory())
 
     kernels = [
         kernel_entry("frontier_expand",
@@ -1597,6 +2158,8 @@ def main() -> None:
     for entry in kernels:
         if entry["name"] in disk_launches:
             entry["disk_path_launches"] = disk_launches[entry["name"]]
+        if entry["name"] in service_launches:
+            entry["service_path_launches"] = service_launches[entry["name"]]
     log("phase seconds: " + json.dumps(clock.seconds))
     log(json.dumps({"kernels": kernels}))
 

@@ -1,7 +1,9 @@
 """GraphChi-DB core, ported: PAL + LSM + the on-disk tier (partition files,
 `GraphDB`, the segmented WAL, the Elias-Gamma codec, failpoints and
-integrity checks) + multi-hop queries + PSW analytics (the service and
-shard tiers are not ported yet)."""
+integrity checks) + the service tier (`ServiceDB`, `Snapshot` sessions,
+the `FrontDesk`, deadlines and circuit breakers) + the shard tier
+(`ShardRouter` over spawned worker processes) + multi-hop queries + PSW
+analytics. The names are the reference `repro.core`'s."""
 from .pal import (
     EdgePartition,
     GraphPAL,
@@ -43,6 +45,13 @@ from .integrity import (
     fsync_dir,
     record_checksum,
 )
+from .deadline import (
+    CircuitBreaker,
+    Deadline,
+    backoff_delays,
+    current_deadline,
+    deadline_scope,
+)
 from .lsm import BufferStaging, EdgeBuffer, LSMStats, LSMTree, MergeTxn
 from .manifest import EpochGuard, LevelManifest, ManifestPartition, ManifestView
 from .disk import (
@@ -66,6 +75,7 @@ from .engine import (
     StorageEngine,
     as_engine,
 )
+from .service import ServiceDB, ServiceStats, Snapshot, tail_cache_stats
 from .walog import SegmentedWAL
 from . import telemetry
 from .telemetry import (
@@ -87,10 +97,24 @@ from .multihop import (
     triangle_count,
     two_hop_counts,
 )
+from .shardrouter import (
+    ShardConfig,
+    ShardEpochLost,
+    ShardOverloadError,
+    ShardProtocolError,
+    ShardRemoteError,
+    ShardRouter,
+    ShardUnavailable,
+    ShardedEngine,
+    ShardedView,
+    shard_of,
+)
+from .frontdesk import FrontDesk, FrontDeskStats
 from .psw import (
     DeviceGraph,
     build_device_graph,
     edge_centric_sweep,
+    edge_centric_sweep_arrays,
     pagerank_device,
     pagerank_host,
     pagerank_out_of_core,

@@ -23,12 +23,26 @@ from typing import Callable, Dict
 import torch
 
 __all__ = ["build_dir", "build_libraries", "cdiv", "check_tensor",
-           "library_path", "load_library", "raise_on_error", "round_up"]
+           "count_launch", "library_path", "load_library", "raise_on_error",
+           "round_up"]
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(namespace: dict) -> None:
+    """Add one to a wrapper module's launch count, `namespace["launches"]`
+    (the module's `globals()`), under a lock: the wrappers launch from
+    several threads (a service's reader threads), and a bare
+    `launches += 1` is a read-modify-write that can lose a count between
+    them. Callers still zero and read the module's `launches`."""
+    with _COUNT_LOCK:
+        namespace["launches"] += 1
 
 
 def cdiv(a: int, b: int) -> int:

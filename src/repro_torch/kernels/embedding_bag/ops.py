@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..common import count_launch
 from . import kernel as _kernel
 from .ref import embedding_bag_torch
 
@@ -39,7 +40,6 @@ def embedding_bag(idx: torch.Tensor, weights: torch.Tensor,
     mode="mean". idx (B, K) int32 or int64 must lie in [0, V), else
     ValueError; a padded slot holds any valid row and weight 0. All on one
     device."""
-    global launches
     for name, t in (("idx", idx), ("weights", weights), ("table", table)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, not "
@@ -73,7 +73,7 @@ def embedding_bag(idx: torch.Tensor, weights: torch.Tensor,
             _kernel.launch(idx.contiguous(),
                            weights.to(torch.float32).contiguous(),
                            table.contiguous(), out, err)
-            launches += 1
+            count_launch(globals())
             stream.synchronize()
             if err.item():
                 err.zero_()

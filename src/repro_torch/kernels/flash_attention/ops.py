@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..common import count_launch
 from . import kernel as _kernel
 from .ref import flash_attention_torch
 
@@ -51,7 +52,6 @@ def _check(q, k, v) -> None:
 
 
 def _forward(q, k, v, causal: bool) -> torch.Tensor:
-    global launches
     if q.device.type == "cuda":
         # a copy lands on fresh, aligned storage (`contiguous` may not)
         q, k, v = (t if _kernel.vector_ready(t)
@@ -60,7 +60,7 @@ def _forward(q, k, v, causal: bool) -> torch.Tensor:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         if out.numel():
             _kernel.launch(q, k, v, out, causal)
-            launches += 1
+            count_launch(globals())
         return out
     if q.device.type != "cpu":
         raise ValueError(f"no flash_attention path for {q.device}")

@@ -30,7 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..common import cdiv, round_up
+from ..common import cdiv, count_launch, round_up
 from . import kernel as _kernel
 from .ref import frontier_expand_torch
 
@@ -173,7 +173,6 @@ def frontier_expand_counts(plan: FrontierPlan, x: torch.Tensor) -> torch.Tensor:
     launch. float32 accumulation is integer-exact below 2**24, far above any
     degree here. CUDA tensors launch the kernel; CPU tensors take the plain
     torch version."""
-    global launches
     if not isinstance(plan.idx, torch.Tensor):
         raise TypeError("plan arrays are numpy: move the plan with "
                         "plan_to_device first")
@@ -195,7 +194,7 @@ def frontier_expand_counts(plan: FrontierPlan, x: torch.Tensor) -> torch.Tensor:
                 (plan.n_src, cdiv(B, _kernel.TILE) if B >= 32 else 0),
                 dtype=torch.uint8, device=x.device)
             _kernel.launch(plan, x, out, scratch, flags)
-            launches += 1
+            count_launch(globals())
         return out
     if x.device.type != "cpu":
         raise ValueError(f"no frontier-expansion path for {x.device}")

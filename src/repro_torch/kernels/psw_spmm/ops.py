@@ -28,7 +28,7 @@ import torch
 
 from ...core.multihop import _resolve_device
 from ...graph.padding import bucket_edges_by_block
-from ..common import cdiv
+from ..common import cdiv, count_launch
 from . import kernel as _kernel
 from .ref import psw_spmm_rows_torch
 
@@ -183,7 +183,6 @@ def prepare_blocks(src: np.ndarray, dst: np.ndarray, n_nodes: int,
 def psw_spmm_rows(layout: RowLayout, x: torch.Tensor) -> torch.Tensor:
     """A @ x over a RowLayout on x's device: x (n_src, F) float32. Returns
     (n_rows, F); a row without entries is zero."""
-    global launches
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"x must be a torch.Tensor, not {type(x).__name__}")
     if (x.dtype != torch.float32 or x.dim() != 2
@@ -200,7 +199,7 @@ def psw_spmm_rows(layout: RowLayout, x: torch.Tensor) -> torch.Tensor:
             scratch = torch.empty((layout.chunks.shape[0], x.shape[1]),
                                   dtype=torch.float32, device=x.device)
             _kernel.launch(layout, x.contiguous(), out, scratch)
-            launches += 1
+            count_launch(globals())
         return out
     if x.device.type != "cpu":
         raise ValueError(f"no psw_spmm path for {x.device}")

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ...graph.padding import pad_to_ell
+from ..common import count_launch
 from . import kernel as _kernel
 from .ref import segment_ell_torch
 
@@ -26,7 +27,6 @@ def segment_ell(idx: torch.Tensor, mask: torch.Tensor,
     """out (N, F): out[n] = Σ_k mask[n,k]·x[idx[n,k]] for int32 idx and
     bool mask (N, K) and float32 x (M, F), all on one device. The live
     slots' idx must lie in [0, M); a masked slot's idx is never read."""
-    global launches
     for name, t in (("idx", idx), ("mask", mask), ("x", x)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, not "
@@ -47,7 +47,7 @@ def segment_ell(idx: torch.Tensor, mask: torch.Tensor,
         if out.numel():
             _kernel.launch(idx.contiguous(), mask.contiguous(),
                            x.contiguous(), out)
-            launches += 1
+            count_launch(globals())
         return out
     if x.device.type != "cpu":
         raise ValueError(f"no segment_ell path for {x.device}")

@@ -264,3 +264,42 @@ def test_cpu_path_counts_no_launch_and_checks_inputs():
         frontier_expand_counts(plan, torch.ones((n, 2), dtype=torch.float64))
     with pytest.raises(ValueError):
         frontier_expand_counts(plan, torch.ones((n + 1, 2)))
+
+
+@pytest.mark.parametrize("kernel", ["frontier_expand", "psw_spmm",
+                                    "segment_ell", "embedding_bag",
+                                    "flash_attention"])
+def test_launch_counts_are_exact_from_threads(kernel, monkeypatch):
+    """Reader threads of a service launch frontier_expand at once: every
+    wrapper counts through `common.count_launch`, whose lock keeps the
+    module count exact (a bare `launches += 1` can lose one between the
+    read and the write). The thread switch interval is cut to provoke
+    interleaving; the zero-then-read protocol is the callers'."""
+    import importlib
+    import inspect
+    import sys
+    import threading
+    from repro_torch.kernels.common import count_launch
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel}.ops")
+    src = inspect.getsource(mod)
+    assert "count_launch(globals())" in src and "launches += 1" not in src
+    monkeypatch.setattr(mod, "launches", 0)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        start = threading.Barrier(8)
+
+        def hammer():
+            start.wait()
+            for _ in range(5_000):
+                count_launch(vars(mod))
+
+        threads = [threading.Thread(target=hammer) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert mod.launches == 40_000

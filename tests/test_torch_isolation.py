@@ -34,7 +34,9 @@ def test_every_module_imports_without_jax_or_repro():
                  "configs.granite_3_2b", "configs.granite_34b",
                  "configs.qwen3_14b", "launch.serve", "core.failpoints",
                  "core.integrity", "core.codec", "core.walog", "core.disk",
-                 "checkpoint", "checkpoint.manager"):
+                 "checkpoint", "checkpoint.manager", "core.deadline",
+                 "core.service", "core.frontdesk", "core.shardrouter",
+                 "torture", "data", "data.linkbench", "data.pipeline"):
         assert "repro_torch." + name in mods, name
     code = (
         "import sys\n"
@@ -52,6 +54,21 @@ def test_every_module_imports_without_jax_or_repro():
                          text=True, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def test_a_spawned_shard_worker_loads_neither_jax_nor_repro(tmp_path):
+    """A port shard worker is a spawned interpreter running
+    `repro_torch.core.shardrouter._worker_main`: it imports the port and
+    torch, never jax or the reference, and creates no CUDA context."""
+    with T.ShardRouter.create(str(tmp_path / "rt"), max_id=999, n_shards=2,
+                              n_partitions=4, n_levels=2,
+                              branching=2) as router:
+        runtime = router.worker_runtime()
+    assert len({rt["pid"] for rt in runtime}) == 2
+    for rt in runtime:
+        assert rt["pid"] != os.getpid()
+        assert rt["modules"] == ["torch"], rt
+        assert rt["cuda_initialized"] is False
 
 
 def test_dense_path_without_a_device_raises_when_cuda_is_absent():

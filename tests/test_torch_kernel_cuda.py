@@ -570,3 +570,94 @@ def test_reopened_graphdb_dense_hops_and_snapshot_on_the_card(cuda,
     for mode in ("dense_gather", "psw_windows"):
         assert torch.equal(psw.pagerank_device(dg, 5, mode=mode).cpu(),
                            psw.pagerank_device(dh, 5, mode=mode))
+
+
+def test_service_read_views_dense_under_a_writer_on_the_card(cuda,
+                                                             tmp_path):
+    """A live ServiceDB with a writer thread and its maintenance pipeline
+    running: two reader threads each pin a `read_view()` and run dense
+    `two_hop_counts` and `khop` through frontier_expand on the card, each
+    bitwise equal to the sparse host path on the same view, on a first
+    view and on a second one pinned after the writer published again.
+    The module's launch count is exactly the launches the two threads
+    made, counted apart in each thread."""
+    import threading
+    import time
+    from repro_torch.core import ServiceDB, khop, two_hop_counts
+    from repro_torch.kernels import frontier_expand as fe
+    rng = np.random.default_rng(23)
+    svc = ServiceDB.create(str(tmp_path / "svc"), max_id=19_999,
+                           n_partitions=8, n_levels=2, branching=4,
+                           buffer_cap=4000, max_partition_edges=50_000,
+                           persist_min_edges=512)
+    counts = fe.frontier_expand_counts
+    per_thread = threading.local()
+
+    def counted(plan, x):
+        if x.device.type == "cuda" and plan.n_dst * x.shape[1]:
+            per_thread.n = getattr(per_thread, "n", 0) + 1
+        return counts(plan, x)
+
+    try:
+        svc.insert_edges(rng.integers(0, 20_000, 60_000),
+                         rng.integers(0, 20_000, 60_000))
+        stop, published = threading.Event(), [0]
+        made, errors, versions = [0, 0], [], [[], []]
+
+        def writer():
+            w = np.random.default_rng(24)
+            try:
+                while not stop.is_set():
+                    svc.insert_edges(w.integers(0, 20_000, 1000),
+                                     w.integers(0, 20_000, 1000))
+                    published[0] += 1
+            except Exception as exc:                   # surfaced below
+                errors.append(exc)
+
+        def reader(i):
+            try:
+                seeds = np.random.default_rng(30 + i).choice(20_000, 150,
+                                                             replace=False)
+                for _ in range(2):
+                    at = published[0]
+                    with svc.read_view() as view:
+                        versions[i].append(view.version)
+                        d2 = two_hop_counts(view, seeds, dense="kernel",
+                                            device=cuda)
+                        s2 = two_hop_counts(view, seeds)
+                        dk = khop(view, seeds[:8], 3, dense="kernel",
+                                  device=cuda)
+                        sk = khop(view, seeds[:8], 3)
+                    for name in ("offsets", "ids", "counts"):
+                        assert np.array_equal(getattr(d2, name),
+                                              getattr(s2, name)), name
+                    assert len(dk.levels) == len(sk.levels)
+                    assert all(np.array_equal(a, b)
+                               for a, b in zip(dk.levels, sk.levels))
+                    give_up = time.monotonic() + 60    # a new publication
+                    while published[0] == at and time.monotonic() < give_up:
+                        time.sleep(0.01)
+                made[i] = getattr(per_thread, "n", 0)
+            except Exception as exc:                   # surfaced below
+                errors.append(exc)
+
+        fe.frontier_expand_counts = counted
+        ops.launches = 0
+        w = threading.Thread(target=writer)
+        readers = [threading.Thread(target=reader, args=(i,))
+                   for i in range(2)]
+        w.start()
+        for t in readers:
+            t.start()
+        for t in readers:
+            t.join(timeout=300)
+        stop.set()
+        w.join(timeout=60)
+        assert not any(t.is_alive() for t in readers + [w])
+        assert not errors, errors
+        assert ops.launches == sum(made) and min(made) > 0
+        for vs in versions:
+            assert vs[1] > vs[0]
+    finally:
+        fe.frontier_expand_counts = counts
+        svc.close()
