@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py [--vertices N] [--edges N] [--seed S]
                           [--disk-budget-mb MB] [--service-vertices N]
-                          [--service-edges N]
+                          [--service-edges N] [--gnn-vertices N]
+                          [--gnn-edges N]
 
 Run from the root of a checkout: the port is imported from `src/`, and its
 CUDA kernels are built from the checkout's sources into `build/kernels/` at
 first use (one nvcc per kernel, all started together). The main path is the
 graph store read by multi-hop queries and analysed by PSW. Phase 9, the
 disk tier, runs first, right after the build, while the process's peak RSS
-is still its baseline; phases 0-8 follow, and phase 10, the service and
-shard tiers, runs last:
+is still its baseline; phases 0-8 follow, then phase 10, the service and
+shard tiers, and phase 11, GNN serving on sampled minibatches, runs last:
 
   9. the disk tier at benchmarks/bench_disk.py's scale-1.0 configuration
      (a 96 MB data budget; --disk-budget-mb sets it, and with it the edge
@@ -122,7 +123,26 @@ shard tiers, runs last:
      `GraphPAL`'s, PageRank modes bitwise equal, `psw_spmm_edges` at
      F = 128 within rowwise 1e-5 of the float64 edge oracle (the float32
      oracle, `index_add_` over the hub's 877,000 in-edges one at a time,
-     misses float64 itself by several times that; its distance is logged).
+     misses float64 itself by several times that; its distance is logged);
+ 11. GNN serving on sampled minibatches, the repo's minibatch_lg cell
+     (configs/gnn_common.py: Reddit, 232,965 vertices, 114,615,892 edges,
+     602 features, 41 classes; --gnn-vertices and --gnn-edges shrink it):
+     a stand-in with Reddit's sizes (power-law edges from --seed) in a
+     16-partition `GraphPAL`, a `NeighborSampler` over its in-edge CSC, the
+     feature table on the card; 4 batches of 1,024 seeds with fanouts
+     15-10, padded to 169,984 nodes and 168,960 edges, uploaded, their
+     features gathered on the card, then gin-tu (5 layers, d 64, its
+     neighbour sum on psw_spmm: one layout a forward, one launch a layer),
+     pna (4, d 75) and meshgraphnet (15, d 128, random 4-wide edge
+     features) compute every node's logits, adapted to the cell as
+     repro/launch/steps.py::_adapt_gnn_config does (edge_chunks 1); each
+     model's forward timed with CUDA events and profiled once with
+     torch.profiler (the device's busy share). Gates: the padding invariants;
+     the seeds' logits on the card within 1e-4 of the same forward on the
+     CPU; GIN's within 1e-4 of GIN with psw_spmm's plain neighbour sum on
+     the card; no NaN or inf; psw_spmm on one batch's layout at F = 64
+     (GIN's encoder output) within rowwise 1e-5 of its plain version, with
+     its time, bound and the torch.sparse.mm yardstick.
 
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 1-2 for frontier_expand, phase 6's aggregation calls for
@@ -132,7 +152,9 @@ own counts (phase 9's dense calls on the store for frontier_expand, its
 `psw_spmm_edges` for psw_spmm) are logged on the `disk path:` line and
 given as `disk_path_launches` in the kernels line; phase 10's (its dense
 hops in b-d for frontier_expand, e's `psw_spmm_edges` for psw_spmm) on the
-`service path:` line and as `service_path_launches`. Any failed check exits
+`service path:` line and as `service_path_launches`; phase 11's (psw_spmm
+in every GIN forward of its 4 batches, which must be 5 a forward) on the
+`gnn path:` line and as `gnn_path_launches`. Any failed check exits
 non-zero. The
 second-to-last line is the card's name and power limit from nvidia-smi;
 the last line is
@@ -724,12 +746,12 @@ def segment_ell_vs_plain(torch, se, se_kernel, ell, reps: int) -> dict:
             "bytes_once": bytes_once, "gather_bytes": gather_bytes}
 
 
-def psw_spmm_vs_plain(torch, ps, ps_kernel, edges, reps: int) -> dict:
+def psw_spmm_rows_vs_plain(torch, ps, ps_kernel, edges, reps: int):
     """The row-gather kernel on its prebuilt row layout against the plain
     version (rowwise 1e-5, repeat runs bitwise), with times, the bound and
-    the torch.sparse.mm yardstick on the same CSR; the layout builds timed
-    on their own: `prepare_rows` from the edges and `compact_tiles` from
-    the reference's host tiles (equal to it bitwise)."""
+    the torch.sparse.mm yardstick on the same CSR, and `prepare_rows` from
+    the edges timed on its own. Returns (result, layout, the kernel's
+    output)."""
     src, dst, x = edges
     n, F = x.shape
     dev = x.device
@@ -767,6 +789,36 @@ def psw_spmm_vs_plain(torch, ps, ps_kernel, edges, reps: int) -> dict:
     del lib
     library_ms = cuda_ms(torch, lambda: torch.sparse.mm(adj, x), reps)
     del adj
+    # the function needs the CSR, the x rows some entry names and out moved
+    # once, and one multiply-add per stored entry and column; the gathers
+    # (every entry's x row) are a side figure
+    csr_bytes = (n + 1) * 8 + nnz * 8
+    x_rows = int(lay.col.unique().numel())
+    bytes_once = csr_bytes + (x_rows + n) * F * 4
+    ops = 2 * nnz * F
+    return {"n": n, "edges": int(src.shape[0]), "nnz": nnz, "F": F,
+            "x_rows_read": x_rows, "hub_rows": int(lay.hub_rows.shape[0]),
+            "chunks": C,
+            "longest_row": int((lay.row_ptr[1:] - lay.row_ptr[:-1]).max()),
+            "max_abs_err": err, "err_over_tolerance": ratio, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_max_abs_err": lib_err, "prepare_rows_ms": rows_ms,
+            **bound(bytes_once, ops, FP32_OPS_PER_S),
+            "gather_bound_ms": (csr_bytes + nnz * max(F * 4, 32)
+                                + n * F * 4) / HBM_BYTES_PER_S * 1e3}, lay, out
+
+
+def psw_spmm_vs_plain(torch, ps, ps_kernel, edges, reps: int) -> dict:
+    """`psw_spmm_rows_vs_plain`, then the tile API: `compact_tiles` from
+    the reference's host tiles (equal to `prepare_rows` bitwise) timed on
+    its own, and `psw_spmm` over the tiles equal to the row kernel, with
+    the dense-tile design's floor (the tiles read once) as a side
+    figure."""
+    src, dst, x = edges
+    n, F = x.shape
+    dev = x.device
+    res, lay, out = psw_spmm_rows_vs_plain(torch, ps, ps_kernel, edges,
+                                           reps)
 
     # the tile API: the reference's host tiles, compacted on the card
     coords_np, tiles_np, nb = ps.prepare_blocks(src, dst, n, 128)
@@ -792,25 +844,8 @@ def psw_spmm_vs_plain(torch, ps, ps_kernel, edges, reps: int) -> dict:
     tile_api_ms = cuda_ms(torch, lambda: ps.psw_spmm(coords, tiles, xp, nb,
                                                      128), max(1, reps // 4))
     del coords, tiles, xp
-
-    # the function needs the CSR, x and out moved once and one multiply-add
-    # per stored entry and column; the gathers (every entry's x row) and the
-    # dense-tile design's floor (the tiles read once) are side figures
-    csr_bytes = (n + 1) * 8 + nnz * 8
-    bytes_once = csr_bytes + 2 * n * F * 4
-    ops = 2 * nnz * F
     tile_bytes = T * 128 * 128 * 4
-    return {"n": n, "edges": int(src.shape[0]), "nnz": nnz, "F": F,
-            "hub_rows": int(lay.hub_rows.shape[0]), "chunks": C,
-            "longest_row": int((lay.row_ptr[1:] - lay.row_ptr[:-1]).max()),
-            "max_abs_err": err, "err_over_tolerance": ratio, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_max_abs_err": lib_err,
-            "prepare_rows_ms": rows_ms, "compact_tiles_ms": compact_ms,
-            "tile_api_ms": tile_api_ms,
-            **bound(bytes_once, ops, FP32_OPS_PER_S),
-            "gather_bound_ms": (csr_bytes + nnz * max(F * 4, 32)
-                                + n * F * 4) / HBM_BYTES_PER_S * 1e3,
+    return {**res, "compact_tiles_ms": compact_ms, "tile_api_ms": tile_api_ms,
             "tiles": T, "tile_bytes": tile_bytes,
             "tile_read_bound_ms": tile_bytes / HBM_BYTES_PER_S * 1e3}
 
@@ -1991,6 +2026,262 @@ def router_reads(router, n_vertices: int, n_threads: int,
             "latency_ms": percentiles([x for lat, _ in out for x in lat])}
 
 
+class plain_neighbour_sum:
+    """GIN's neighbour sum through psw_spmm's plain version: the model's
+    module-level name swapped for the duration (the check's reference)."""
+
+    def __init__(self, gin, ps):
+        self.gin, self.ps = gin, ps
+
+    def __enter__(self):
+        self.real = self.gin.psw_spmm_rows
+        self.gin.psw_spmm_rows = (
+            lambda lay, x: self.ps.psw_spmm_rows_torch(
+                lay.row_ptr, lay.col, lay.val, x, lay.block))
+
+    def __exit__(self, *exc):
+        self.gin.psw_spmm_rows = self.real
+
+
+def padding_ok(sub, seeds, n_vertices: int, fanouts, n_pad: int,
+               e_pad: int) -> bool:
+    """A sampled subgraph's invariants: the padded shapes, masks that are
+    prefixes, the seeds first, live ids distinct and in range, edges
+    between live nodes, at most sum(fanouts) in-edges a node, padding 0."""
+    n, e = int(sub.node_mask.sum()), int(sub.edge_mask.sum())
+    live, s, d = sub.nodes[:n], sub.src[:e], sub.dst[:e]
+    return (sub.nodes.shape == sub.node_mask.shape == (n_pad,)
+            and sub.src.shape == sub.dst.shape == sub.edge_mask.shape
+            == (e_pad,)
+            and sub.node_mask[:n].all() and sub.edge_mask[:e].all()
+            and sub.n_seeds == len(seeds)
+            and np.array_equal(sub.nodes[:len(seeds)], seeds)
+            and np.unique(live).size == n and live.min() >= 0
+            and live.max() < n_vertices
+            and (e == 0 or (min(s.min(), d.min()) >= 0
+                            and max(s.max(), d.max()) < n
+                            and np.bincount(d).max() <= sum(fanouts)))
+            and not sub.nodes[n:].any() and not sub.src[e:].any()
+            and not sub.dst[e:].any())
+
+
+def device_profile(torch, fn, steps: int) -> dict:
+    """`fn` run `steps` times under torch.profiler (CPU and CUDA
+    activities): the device's busy ms a call (the summed device time of
+    its kernels, memcpys and memsets), the kernels a call, and the three
+    with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    on_device = sorted((e for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA),
+                       key=lambda e: -e.self_device_time_total)
+    return {"device_busy_ms": sum(e.self_device_time_total
+                                  for e in on_device) / 1e3 / steps,
+            "kernels": sum(e.count for e in on_device) / steps,
+            "top": [[e.key[:60], e.self_device_time_total / 1e3 / steps,
+                     e.count / steps] for e in on_device[:3]]}
+
+
+def gnn_models(torch, dev, seed: int):
+    """(modules, configs, params) of gin-tu, pna and meshgraphnet at their
+    full widths, adapted to the minibatch_lg cell as
+    repro/launch/steps.py::_adapt_gnn_config adapts them (node readout;
+    edge_chunks 1, that rule's value below 1M edges, which MB_EDGES is),
+    params drawn on `dev` from `seed`."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import GNN_SHAPES
+    from repro_torch.models.gnn import gin, meshgraphnet, pna
+    cell = GNN_SHAPES["minibatch_lg"]
+    d_feat, n_cls = cell["d_feat"], cell["n_classes"]
+    models = {"gin-tu": gin, "pna": pna, "meshgraphnet": meshgraphnet}
+    cfgs = {
+        "gin-tu": dataclasses.replace(
+            get_arch("gin-tu").config, d_in=d_feat, n_classes=n_cls,
+            readout="node", edge_chunks=1),
+        "pna": dataclasses.replace(
+            get_arch("pna").config, d_in=d_feat, n_classes=n_cls,
+            readout="node", edge_chunks=1),
+        "meshgraphnet": dataclasses.replace(
+            get_arch("meshgraphnet").config, d_node_in=d_feat, d_edge_in=4,
+            d_out=n_cls, edge_chunks=1)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = {k: m.init_params(gen, cfgs[k], dev) for k, m in models.items()}
+    return models, cfgs, params
+
+
+def phase_gnn(torch, core, ps, ps_kernel, dev, args, clock) -> dict:
+    """Phase 11, GNN serving on sampled minibatches (the repo's
+    minibatch_lg cell, configs/gnn_common.py): a stand-in with Reddit's
+    published sizes (--gnn-vertices and --gnn-edges shrink it) in a
+    `GraphPAL` of 16 partitions, a `NeighborSampler` over its in-edge CSC,
+    the 602-wide feature table on the card; 4 batches of 1,024 seeds with
+    fanouts 15-10, padded to MB_NODES / MB_EDGES, uploaded, their features
+    gathered on the card, and gin-tu, pna and meshgraphnet at their full
+    widths (adapted as repro/launch/steps.py::_adapt_gnn_config adapts
+    them) computing the seeds' logits. GIN's neighbour sum runs on
+    psw_spmm. Gates: the card's logits against the same forward on the
+    CPU and GIN's against its plain neighbour sum, within 1e-4; no NaN or
+    inf; the padding invariants; psw_spmm at the GIN shape against its
+    plain version (rowwise 1e-5). Each model's first-batch forward is
+    also profiled (the device's busy ms and idle share). Returns
+    psw_spmm's launches on the path and its result at the GIN shape."""
+    from repro_torch import convert
+    from repro_torch.configs.gnn_common import GNN_SHAPES, MB_EDGES, MB_NODES
+    from repro_torch.graph import NeighborSampler
+    from repro_torch.models.gnn import gin
+    from repro_torch.models.gnn.common import mlp_apply
+    t_phase = time.perf_counter()
+    cell = GNN_SHAPES["minibatch_lg"]
+    n, e = args.gnn_vertices, args.gnn_edges
+    d_feat, n_cls, fanouts, B = (cell["d_feat"], cell["n_classes"],
+                                 cell["fanout"], cell["seeds"])
+    log(f"phase 11 GNN serving on sampled minibatches: minibatch_lg's "
+        f"stand-in, {n} vertices, {e} power-law edges, {d_feat} features, "
+        f"{n_cls} classes; {B} seeds a batch, fanouts {fanouts}, padded to "
+        f"{MB_NODES} nodes and {MB_EDGES} edges")
+    src, dst = clock("11 power_law_graph (the stand-in's edges)",
+                     power_law_graph, n, e, seed=args.seed + 30)
+    g = clock("11 GraphPAL.from_edges (16 partitions)",
+              core.GraphPAL.from_edges, src, dst, n_partitions=16,
+              max_id=n - 1)
+    del src, dst
+    sampler = clock("11 NeighborSampler (the in-edge CSC)", NeighborSampler,
+                    g, seed=args.seed + 31)
+    table = randn(torch, (n, d_feat), dev, args.seed + 32)
+    models, cfgs, params = gnn_models(torch, dev, args.seed + 33)
+    gin_forwards = [0]
+
+    def forward(name, batch):
+        if name == "gin-tu" and batch["x"].device.type == "cuda":
+            gin_forwards[0] += 1
+        return models[name].forward(params[name], batch, cfgs[name])
+
+    rng = np.random.default_rng(args.seed + 34)
+    reps = max(2, args.reps // 4)
+    rows, first = [], None
+    ps.ops.launches = 0                        # the GNN path...
+    with torch.no_grad():
+        for b in range(4):
+            seeds = rng.choice(n, B, replace=False)
+            t0 = time.perf_counter()
+            sub = sampler.sample(seeds, fanouts, pad_nodes=MB_NODES,
+                                 pad_edges=MB_EDGES)
+            row = {"sample_s": time.perf_counter() - t0,
+                   "nodes": int(sub.node_mask.sum()),
+                   "edges": int(sub.edge_mask.sum())}
+            check(padding_ok(sub, seeds, n, fanouts, MB_NODES, MB_EDGES),
+                  f"11: batch {b}'s sampled subgraph breaks the padding "
+                  "invariants")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nodes = torch.from_numpy(sub.nodes).to(dev)
+            batch = {k: torch.from_numpy(getattr(sub, k)).to(dev)
+                     for k in ("src", "dst", "edge_mask", "node_mask")}
+            torch.cuda.synchronize()
+            row["upload_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            batch["x"] = (table.index_select(0, nodes)
+                          * batch["node_mask"][:, None])
+            torch.cuda.synchronize()
+            row["gather_ms"] = (time.perf_counter() - t0) * 1e3
+            batch["edge_attr"] = randn(torch, (MB_EDGES, 4), dev,
+                                       args.seed + 40 + b)
+            for name in models:
+                row[f"{name}_ms"] = cuda_ms(
+                    torch, lambda: forward(name, batch), reps)
+            rows.append(row)
+            log(f"  batch {b}: " + json.dumps(row))
+            if first is None:
+                first = (sub.n_seeds, batch)
+            del nodes
+    launches = ps.ops.launches                 # ...ends here
+    n_fwd, n_layers = gin_forwards[0], cfgs["gin-tu"].n_layers
+    check(n_fwd > 0 and launches == n_layers * n_fwd,
+          f"11: {launches} psw_spmm launches for {n_fwd} GIN forwards of "
+          f"{n_layers} layers")
+    res = {"launches": launches, "gin_forwards": n_fwd, "batches": rows}
+
+    # where a forward's time goes: the device's busy share of batch 0's
+    # forward time, from torch.profiler
+    s, batch = first
+    with torch.no_grad():
+        for name in models:
+            prof = device_profile(torch, lambda: forward(name, batch), 3)
+            ms = rows[0][f"{name}_ms"]
+            busy = prof["device_busy_ms"]     # 0: the profiler saw no device
+            prof["idle_share"] = 1 - busy / ms if busy else None
+            res[f"{name}_profile"] = prof
+            log(f"  {name} profile (forward {ms:.3f} ms): "
+                + json.dumps(prof))
+
+    # gates on the first batch: the card against the CPU, GIN's kernel
+    # against its plain neighbour sum, nothing non-finite
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    errs = {}
+    with torch.no_grad():
+        for name in models:
+            out = forward(name, batch)
+            check(tuple(out.shape) == (MB_NODES, n_cls)
+                  and bool(torch.isfinite(out).all()),
+                  f"11: {name} logits of shape {tuple(out.shape)} hold NaN "
+                  "or inf")
+            p_cpu = convert.gnn_params_from_arrays(
+                convert.gnn_params_to_arrays(params[name]), params[name],
+                "cpu")
+            want = models[name].forward(p_cpu, cpu_batch, cfgs[name])
+            got = out.cpu()
+            live = cpu_batch["node_mask"]
+            errs[f"{name}_seeds_vs_cpu"] = float((got[:s] - want[:s]).abs()
+                                                 .max())
+            errs[f"{name}_live_nodes_vs_cpu"] = float(
+                (got[live] - want[live]).abs().max())
+            check(torch.allclose(got[live], want[live], rtol=1e-4,
+                                 atol=1e-4),
+                  f"11: {name} live nodes' logits on the card vs the CPU: "
+                  f"max abs err {errs[f'{name}_live_nodes_vs_cpu']}")
+            if name == "gin-tu":
+                n0 = ps.ops.launches
+                with plain_neighbour_sum(gin, ps):
+                    plain = gin.forward(params[name], batch, cfgs[name])
+                check(ps.ops.launches == n0, "11: GIN's plain neighbour sum "
+                      "launched the kernel")
+                errs["gin-tu_kernel_vs_plain"] = float(
+                    (out - plain).abs().max())
+                check(torch.allclose(out, plain, rtol=1e-4, atol=1e-4),
+                      f"11: GIN on psw_spmm vs its plain neighbour sum: max "
+                      f"abs err {errs['gin-tu_kernel_vs_plain']}")
+                del plain
+            del out, want, got
+        log("  logits within 1e-4 (max abs err): " + json.dumps(errs))
+        res["logit_errs"] = errs
+
+        # psw_spmm at the GIN shape: one batch's layout over its live edges,
+        # x = GIN's encoder output, the x the first layer's sum reads
+        live = batch["edge_mask"]
+        gx = mlp_apply(params["gin-tu"]["encoder"], batch["x"],
+                       final_act=True)
+        spmm, _, _ = psw_spmm_rows_vs_plain(
+            torch, ps, ps_kernel, (batch["src"][live], batch["dst"][live],
+                                   gx), args.reps)
+    res["psw_spmm"] = spmm
+    log("  psw_spmm at the GIN shape: " + json.dumps(spmm))
+    del first, batch, cpu_batch, gx, table, params, sampler, g
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"gnn path: {launches} psw_spmm launches ({n_fwd} GIN forwards of "
+        f"{n_layers} layers); "
+        + json.dumps({k: v for k, v in res.items()
+                      if k in ("logit_errs", "phase_s")}))
+    return res
+
+
 def build_kernels(common, kernels) -> None:
     """Build every kernel's library at once (one nvcc each, all started
     together), load them, then print ptxas's register and spill report."""
@@ -2045,6 +2336,8 @@ def main() -> None:
     ap.add_argument("--disk-budget-mb", type=float, default=96.0)
     ap.add_argument("--service-vertices", type=int, default=200_000)
     ap.add_argument("--service-edges", type=int, default=3_000_000)
+    ap.add_argument("--gnn-vertices", type=int, default=232_965)
+    ap.add_argument("--gnn-edges", type=int, default=114_615_892)
     args = ap.parse_args()
 
     import torch
@@ -2128,6 +2421,10 @@ def main() -> None:
                                      clock)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB (phase 10), " + host_memory())
+    torch.cuda.reset_peak_memory_stats()
+    gnn = phase_gnn(torch, core, ps, ps_kernel, dev, args, clock)
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB (phase 11), " + host_memory())
 
     kernels = [
         kernel_entry("frontier_expand",
@@ -2143,7 +2440,8 @@ def main() -> None:
         kernel_entry("psw_spmm",
                      "src/repro_torch/kernels/psw_spmm/csrc/psw_spmm.cu",
                      "src/repro/kernels/psw_spmm/psw_spmm.py:49",
-                     agg_launches["psw_spmm"], spmm_res[0], spmm_res),
+                     agg_launches["psw_spmm"], spmm_res[0],
+                     spmm_res + [gnn["psw_spmm"]]),
         kernel_entry("embedding_bag",
                      "src/repro_torch/kernels/embedding_bag/csrc/"
                      "embedding_bag.cu",
@@ -2160,6 +2458,8 @@ def main() -> None:
             entry["disk_path_launches"] = disk_launches[entry["name"]]
         if entry["name"] in service_launches:
             entry["service_path_launches"] = service_launches[entry["name"]]
+        if entry["name"] == "psw_spmm":
+            entry["gnn_path_launches"] = gnn["launches"]
     log("phase seconds: " + json.dumps(clock.seconds))
     log(json.dumps({"kernels": kernels}))
 

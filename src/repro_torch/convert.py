@@ -23,9 +23,13 @@ A transformer's params (`transformer_params_to_arrays` /
 pytree: `embed`, `layers.attn.wq`, ..., `layers.mlp.w_down`, `layers.ln1`,
 `final_norm`, `lm_head`, each layer leaf with its leading `n_layers` axis.
 A KV cache travels the same way (`k`, `v`; `kv_cache_from_arrays`).
+A GNN's params (`gnn_params_to_arrays` / `gnn_params_from_arrays`: GIN,
+PNA, MeshGraphNet) are nested lists and dicts; a list item's key is its
+index: `encoder.0.w`, `layers.3.mlp.1.b`, `layers.3.eps`, `heads.5.0.w`.
 bfloat16 leaves cross as float32, which holds them exactly."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -35,9 +39,11 @@ import torch
 from .core.pal import EdgePartition, GraphPAL, IntervalMap
 from .core.psw import DeviceGraph, segment_ptr
 from .kernels.frontier_expand.ops import FrontierPlan, plan_to_device
+from .models.gnn import gin, meshgraphnet, pna
 from .models.transformer import MOE_TODO, TransformerConfig, _layer_shapes
 
 __all__ = ["device_graph_from_arrays", "device_graph_to_arrays",
+           "gnn_params_from_arrays", "gnn_params_to_arrays",
            "kv_cache_from_arrays", "kv_cache_to_arrays", "pal_from_arrays",
            "pal_to_arrays", "plan_from_arrays", "plan_to_arrays",
            "transformer_params_from_arrays", "transformer_params_to_arrays"]
@@ -188,12 +194,14 @@ def _host_array(a) -> np.ndarray:
 
 
 def _flatten(tree, prefix: str = ""):
-    """(dotted key, leaf) pairs of nested dicts."""
-    for name, v in tree.items():
-        if isinstance(v, dict):
-            yield from _flatten(v, prefix + name + ".")
+    """(dotted key, leaf) pairs of nested dicts and lists (a list item's
+    key is its index; a tuple is a leaf: a shape)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for name, v in items:
+        if isinstance(v, (dict, list)):
+            yield from _flatten(v, f"{prefix}{name}.")
         else:
-            yield prefix + name, v
+            yield f"{prefix}{name}", v
 
 
 def transformer_params_to_arrays(tree) -> Dict[str, np.ndarray]:
@@ -252,3 +260,49 @@ def kv_cache_from_arrays(d: Dict[str, np.ndarray], cfg: TransformerConfig,
         raise ValueError(f"cache k has shape {k}, expected 5 dimensions")
     shp = (cfg.n_layers, k[1], k[2], cfg.n_kv_heads, cfg.head_dim)
     return _tree_from_arrays(d, {"k": shp, "v": shp}, dtype, device)
+
+
+_GNN_MODELS = {gin.GINConfig: gin, pna.PNAConfig: pna,
+               meshgraphnet.MeshGraphNetConfig: meshgraphnet}
+
+
+def gnn_params_to_arrays(tree) -> Dict[str, np.ndarray]:
+    """Flatten a GNN params tree (either package's nested lists and dicts)
+    into dotted keys of numpy arrays."""
+    return {k: _host_array(v) for k, v in _flatten(tree)}
+
+
+def gnn_params_from_arrays(d: Dict[str, np.ndarray], template_or_cfg,
+                           device):
+    """Rebuild a port GNN params tree on `device` from
+    `gnn_params_to_arrays` output. The tree's layout, shapes and dtypes are
+    a port params tree's (`template_or_cfg`) or those `init_params` gives
+    a GIN, PNA or MeshGraphNet config; keys and shapes must match them."""
+    template = template_or_cfg
+    if dataclasses.is_dataclass(template_or_cfg):
+        model = _GNN_MODELS.get(type(template_or_cfg))
+        if model is None:
+            raise TypeError(f"no GNN model for "
+                            f"{type(template_or_cfg).__name__}")
+        template = model.init_params(torch.Generator(), template_or_cfg,
+                                     device="meta")
+    leaves = dict(_flatten(template))
+    if set(d) != set(leaves):
+        raise ValueError(f"keys differ from the template's: missing "
+                         f"{sorted(set(leaves) - set(d))}, extra "
+                         f"{sorted(set(d) - set(leaves))}")
+    dev = torch.device(device)
+
+    def build(node, prefix):
+        if isinstance(node, dict):
+            return {k: build(v, f"{prefix}{k}.") for k, v in node.items()}
+        if isinstance(node, list):
+            return [build(v, f"{prefix}{i}.") for i, v in enumerate(node)]
+        key = prefix[:-1]
+        a = _host_array(d[key])
+        if a.shape != tuple(node.shape):
+            raise ValueError(f"{key} has shape {a.shape}, expected "
+                             f"{tuple(node.shape)}")
+        return torch.from_numpy(np.array(a)).to(device=dev, dtype=node.dtype)
+
+    return build(template, "")

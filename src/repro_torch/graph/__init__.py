@@ -1,5 +1,23 @@
-"""Graph layouts for the device (port of `repro/graph/`; only `padding` so
-far: segment_ops, chunked, sampler and psw_ops are ROADMAP slice 6)."""
-from .padding import bucket_edges_by_block, pad_to_ell
+"""Message-passing substrate built on PAL storage (port of the reference
+`repro/graph/`): segment ops, edge-chunked aggregation, the neighbour
+sampler and the device layouts. `psw_ops`, the multi-device PSW ring, is
+ROADMAP queue 1's slice 6b."""
+from .segment_ops import (
+    aggregate_multi,
+    degree,
+    edge_softmax,
+    gather_src,
+    scatter_max,
+    scatter_mean,
+    scatter_min,
+    scatter_std,
+    scatter_sum,
+)
+from .sampler import NeighborSampler, SampledSubgraph
+from .padding import pad_to_ell, bucket_edges_by_block
 
-__all__ = ["bucket_edges_by_block", "pad_to_ell"]
+__all__ = [
+    "aggregate_multi", "degree", "edge_softmax", "gather_src",
+    "scatter_max", "scatter_mean", "scatter_min", "scatter_std", "scatter_sum",
+    "NeighborSampler", "SampledSubgraph", "pad_to_ell", "bucket_edges_by_block",
+]

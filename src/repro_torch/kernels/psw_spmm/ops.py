@@ -115,19 +115,27 @@ def _layout(rows: torch.Tensor, cols: torch.Tensor, val: torch.Tensor,
                      chunks, n_src, block, CHUNK)
 
 
+def _ids_on(ids, dev: torch.device) -> torch.Tensor:
+    """Edge ids as int64 on `dev`. A tensor is taken as it is (a copy only
+    where its device or dtype differ), so ids already on the card make no
+    host round trip. Anything else is copied: a read-only array (a
+    partition file's memmap) is never aliased, so evicting its mapping
+    cannot pull it from under a tensor."""
+    if isinstance(ids, torch.Tensor):
+        return ids.to(device=dev, dtype=torch.int64)
+    return torch.tensor(np.asarray(ids), dtype=torch.int64, device=dev)
+
+
 def prepare_rows(src, dst, n_nodes: int, block: int = 128,
                  device=None) -> RowLayout:
-    """An edge list (array-likes of ids in [0, n_nodes)) -> its RowLayout
-    on `device` (None: the GPU). Multi-edges become one entry whose value
-    is their count, as the tiles count them."""
+    """An edge list (tensors on any device, or array-likes, of ids in
+    [0, n_nodes)) -> its RowLayout on `device` (None: the GPU). Multi-edges
+    become one entry whose value is their count, as the tiles count
+    them."""
     dev = _resolve_device(device, "prepare_rows")
     if n_nodes >= 2**31:
         raise ValueError(f"{n_nodes} nodes: source ids are int32")
-    # torch.tensor copies: a read-only array (a partition file's memmap)
-    # is never aliased, so evicting its mapping cannot pull it from under
-    # a tensor
-    s = torch.tensor(np.asarray(src), dtype=torch.int64, device=dev)
-    d = torch.tensor(np.asarray(dst), dtype=torch.int64, device=dev)
+    s, d = _ids_on(src, dev), _ids_on(dst, dev)
     if s.shape != d.shape or s.dim() != 1:
         raise ValueError(f"src {tuple(s.shape)} and dst {tuple(d.shape)} "
                          "must be one-dimensional and of one length")

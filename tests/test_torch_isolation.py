@@ -36,7 +36,12 @@ def test_every_module_imports_without_jax_or_repro():
                  "core.integrity", "core.codec", "core.walog", "core.disk",
                  "checkpoint", "checkpoint.manager", "core.deadline",
                  "core.service", "core.frontdesk", "core.shardrouter",
-                 "torture", "data", "data.linkbench", "data.pipeline"):
+                 "torture", "data", "data.linkbench", "data.pipeline",
+                 "graph.segment_ops", "graph.chunked", "graph.sampler",
+                 "models.gnn", "models.gnn.common", "models.gnn.gin",
+                 "models.gnn.pna", "models.gnn.meshgraphnet",
+                 "configs.gnn_common", "configs.gin_tu", "configs.pna",
+                 "configs.meshgraphnet"):
         assert "repro_torch." + name in mods, name
     code = (
         "import sys\n"

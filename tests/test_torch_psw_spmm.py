@@ -339,3 +339,32 @@ def test_prepare_rows_device_and_bad_inputs(monkeypatch):
         psw_spmm_rows(lay, torch.ones((5, 3)))        # not n_src rows
     with pytest.raises(ValueError):
         psw_spmm_rows(lay, torch.ones((4, 3), dtype=torch.float64))
+
+
+def same_layout(a, b):
+    for name in ("row_ptr", "col", "val", "hub_rows", "hub_ptr", "chunks"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.dtype == y.dtype and torch.equal(x, y), name
+    assert (a.n_src, a.block, a.max_row) == (b.n_src, b.block, b.max_row)
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_prepare_rows_takes_tensors_as_they_are(dtype):
+    """Ids given as tensors (as a GNN batch holds them) build the layout
+    the same ids give as numpy arrays, memmaps or lists; a tensor is read
+    in place, and the caller's ids are never written."""
+    src, dst = edge_list(300, 5000, seed=21)
+    dst[:600] = 7                                     # a hub row, chunked
+    want = prepare_rows(src, dst, 300, 128, device="cpu")
+    s, d = (torch.from_numpy(a).to(dtype) for a in (src, dst))
+    s0, d0 = s.clone(), d.clone()
+    same_layout(prepare_rows(s, d, 300, 128, device="cpu"), want)
+    assert torch.equal(s, s0) and torch.equal(d, d0)
+    same_layout(prepare_rows(list(src), list(dst), 300, 128, device="cpu"),
+                want)
+    live = torch.rand(5000, generator=torch.Generator().manual_seed(0)) < 0.7
+    same_layout(prepare_rows(s[live], d[live], 300, 128, device="cpu"),
+                prepare_rows(src[live.numpy()], dst[live.numpy()], 300, 128,
+                             device="cpu"))
+    with pytest.raises(ValueError):
+        prepare_rows(s, d + 300, 300, device="cpu")
