@@ -12,7 +12,8 @@ first use (one nvcc per kernel, all started together). The main path is the
 graph store read by multi-hop queries and analysed by PSW. Phase 9, the
 disk tier, runs first, right after the build, while the process's peak RSS
 is still its baseline; phases 0-8 follow, then phase 10, the service and
-shard tiers, and phase 11, GNN serving on sampled minibatches, runs last:
+shard tiers, phase 11, GNN serving on sampled minibatches, and phase 12,
+EquiformerV2 serving from phase 11's sampler, runs last:
 
   9. the disk tier at benchmarks/bench_disk.py's scale-1.0 configuration
      (a 96 MB data budget; --disk-budget-mb sets it, and with it the edge
@@ -142,7 +143,24 @@ shard tiers, and phase 11, GNN serving on sampled minibatches, runs last:
      CPU; GIN's within 1e-4 of GIN with psw_spmm's plain neighbour sum on
      the card; no NaN or inf; psw_spmm on one batch's layout at F = 64
      (GIN's encoder output) within rowwise 1e-5 of its plain version, with
-     its time, bound and the torch.sparse.mm yardstick.
+     its time, bound and the torch.sparse.mm yardstick;
+ 12. EquiformerV2 serving sampled minibatches of phase 11's stand-in (its
+     sampler): equiformer-v2's full config (12 layers, 128 channels, l_max
+     6, m_max 2, 8 heads) adapted to minibatch_lg as
+     repro/launch/steps.py::_adapt_gnn_config does (41 outputs, 128
+     species, 4 edge chunks, psw_ring on one rank, remat on), random
+     weights from --seed; unit-ball positions and hashed species a vertex
+     (`phase_equiformer`); 2 batches of 1,024 seeds at 15-10, padded to
+     169,984 nodes and 168,960 edges, each forward timed with CUDA events
+     and the first profiled. Its message scatter runs on psw_spmm (one
+     layout a chunk a forward, one launch a chunk and layer). Gates:
+     logits (169,984, 41), finite; the kernel's forward within 1e-4 of the
+     same forward with psw_spmm's plain version; the card's take-mode
+     forward at edge_chunks 1 and 4 within 1e-4 of the CPU's on a 64-seed
+     batch; n_layers x edge_chunks launches a forward; psw_spmm at the
+     scatter shape (F = 6,272) within rowwise 1e-5 of its plain version,
+     with its time, bound and the index_add_ yardstick. Logged: the seeds'
+     logits under a random global rotation.
 
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 1-2 for frontier_expand, phase 6's aggregation calls for
@@ -154,8 +172,10 @@ given as `disk_path_launches` in the kernels line; phase 10's (its dense
 hops in b-d for frontier_expand, e's `psw_spmm_edges` for psw_spmm) on the
 `service path:` line and as `service_path_launches`; phase 11's (psw_spmm
 in every GIN forward of its 4 batches, which must be 5 a forward) on the
-`gnn path:` line and as `gnn_path_launches`. Any failed check exits
-non-zero. The
+`gnn path:` line and as `gnn_path_launches`; phase 12's (psw_spmm in
+every EquiformerV2 forward on the card, n_layers x edge_chunks each) on
+the `equiformer path:` line and as `equiformer_path_launches`. Any failed
+check exits non-zero. The
 second-to-last line is the card's name and power limit from nvidia-smi;
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -746,21 +766,17 @@ def segment_ell_vs_plain(torch, se, se_kernel, ell, reps: int) -> dict:
             "bytes_once": bytes_once, "gather_bytes": gather_bytes}
 
 
-def psw_spmm_rows_vs_plain(torch, ps, ps_kernel, edges, reps: int):
-    """The row-gather kernel on its prebuilt row layout against the plain
-    version (rowwise 1e-5, repeat runs bitwise), with times, the bound and
-    the torch.sparse.mm yardstick on the same CSR, and `prepare_rows` from
-    the edges timed on its own. Returns (result, layout, the kernel's
-    output)."""
-    src, dst, x = edges
-    n, F = x.shape
-    dev = x.device
-    lay = ps.prepare_rows(src, dst, n, 128, device=dev)
-    nnz, C = lay.nnz, int(lay.chunks.shape[0])
-    out = torch.empty((n, F), dtype=torch.float32, device=dev)
-    scratch = torch.empty((C, F), dtype=torch.float32, device=dev)
+def psw_spmm_layout_vs_plain(torch, ps, ps_kernel, lay, x, reps: int):
+    """The row-gather kernel on a prebuilt row layout against the plain
+    version (rowwise 1e-5, repeat runs bitwise), both timed. Returns (the
+    kernel's output, the layout's shape, the error and the times)."""
+    n, F = lay.n_rows, x.shape[1]
+    C = int(lay.chunks.shape[0])
+    out = torch.empty((n, F), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((C, F), dtype=torch.float32, device=x.device)
     ps_kernel.launch(lay, x, out, scratch)
-    plain = ps.psw_spmm_rows_torch(lay.row_ptr, lay.col, lay.val, x, 128)
+    plain = ps.psw_spmm_rows_torch(lay.row_ptr, lay.col, lay.val, x,
+                                   lay.block)
     torch.cuda.synchronize()
     ok, err, ratio = row_tolerance(out, plain, 1e-5, 1e-5)
     check(ok, f"psw_spmm kernel vs plain version at F={F}: max abs err "
@@ -772,7 +788,27 @@ def psw_spmm_rows_vs_plain(torch, ps, ps_kernel, edges, reps: int):
     del plain, again
     ms = cuda_ms(torch, lambda: ps_kernel.launch(lay, x, out, scratch), reps)
     plain_ms = cuda_ms(torch, lambda: ps.psw_spmm_rows_torch(
-        lay.row_ptr, lay.col, lay.val, x, 128), max(1, reps // 4))
+        lay.row_ptr, lay.col, lay.val, x, lay.block), max(1, reps // 4))
+    return out, {
+        "n": n, "nnz": lay.nnz, "F": F,
+        "hub_rows": int(lay.hub_rows.shape[0]), "chunks": C,
+        "longest_row": int((lay.row_ptr[1:] - lay.row_ptr[:-1]).max()),
+        "max_abs_err": err, "err_over_tolerance": ratio, "ms": ms,
+        "plain_ms": plain_ms}
+
+
+def psw_spmm_rows_vs_plain(torch, ps, ps_kernel, edges, reps: int):
+    """The row-gather kernel on its prebuilt row layout against the plain
+    version (rowwise 1e-5, repeat runs bitwise), with times, the bound and
+    the torch.sparse.mm yardstick on the same CSR, and `prepare_rows` from
+    the edges timed on its own. Returns (result, layout, the kernel's
+    output)."""
+    src, dst, x = edges
+    n, F = x.shape
+    dev = x.device
+    lay = ps.prepare_rows(src, dst, n, 128, device=dev)
+    nnz = lay.nnz
+    out, res = psw_spmm_layout_vs_plain(torch, ps, ps_kernel, lay, x, reps)
     rows_ms = cuda_ms(torch, lambda: ps.prepare_rows(src, dst, n, 128,
                                                      device=dev),
                       max(1, reps // 4))
@@ -796,12 +832,8 @@ def psw_spmm_rows_vs_plain(torch, ps, ps_kernel, edges, reps: int):
     x_rows = int(lay.col.unique().numel())
     bytes_once = csr_bytes + (x_rows + n) * F * 4
     ops = 2 * nnz * F
-    return {"n": n, "edges": int(src.shape[0]), "nnz": nnz, "F": F,
-            "x_rows_read": x_rows, "hub_rows": int(lay.hub_rows.shape[0]),
-            "chunks": C,
-            "longest_row": int((lay.row_ptr[1:] - lay.row_ptr[:-1]).max()),
-            "max_abs_err": err, "err_over_tolerance": ratio, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+    return {"edges": int(src.shape[0]), "x_rows_read": x_rows, **res,
+            "library_ms": library_ms,
             "library_max_abs_err": lib_err, "prepare_rows_ms": rows_ms,
             **bound(bytes_once, ops, FP32_OPS_PER_S),
             "gather_bound_ms": (csr_bytes + nnz * max(F * 4, 32)
@@ -2068,7 +2100,7 @@ def padding_ok(sub, seeds, n_vertices: int, fanouts, n_pad: int,
 def device_profile(torch, fn, steps: int) -> dict:
     """`fn` run `steps` times under torch.profiler (CPU and CUDA
     activities): the device's busy ms a call (the summed device time of
-    its kernels, memcpys and memsets), the kernels a call, and the three
+    its kernels, memcpys and memsets), the kernels a call, and the ten
     with the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2084,7 +2116,7 @@ def device_profile(torch, fn, steps: int) -> dict:
                                   for e in on_device) / 1e3 / steps,
             "kernels": sum(e.count for e in on_device) / steps,
             "top": [[e.key[:60], e.self_device_time_total / 1e3 / steps,
-                     e.count / steps] for e in on_device[:3]]}
+                     e.count / steps] for e in on_device[:10]]}
 
 
 def gnn_models(torch, dev, seed: int):
@@ -2131,7 +2163,8 @@ def phase_gnn(torch, core, ps, ps_kernel, dev, args, clock) -> dict:
     inf; the padding invariants; psw_spmm at the GIN shape against its
     plain version (rowwise 1e-5). Each model's first-batch forward is
     also profiled (the device's busy ms and idle share). Returns
-    psw_spmm's launches on the path and its result at the GIN shape."""
+    psw_spmm's launches on the path and its result at the GIN shape, and
+    the sampler, which phase 12 serves from."""
     from repro_torch import convert
     from repro_torch.configs.gnn_common import GNN_SHAPES, MB_EDGES, MB_NODES
     from repro_torch.graph import NeighborSampler
@@ -2272,13 +2305,262 @@ def phase_gnn(torch, core, ps, ps_kernel, dev, args, clock) -> dict:
                                    gx), args.reps)
     res["psw_spmm"] = spmm
     log("  psw_spmm at the GIN shape: " + json.dumps(spmm))
-    del first, batch, cpu_batch, gx, table, params, sampler, g
+    del first, batch, cpu_batch, gx, table, params, g
     torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"gnn path: {launches} psw_spmm launches ({n_fwd} GIN forwards of "
         f"{n_layers} layers); "
         + json.dumps({k: v for k, v in res.items()
                       if k in ("logit_errs", "phase_s")}))
+    return res, sampler
+
+
+def psw_spmm_scatter_vs_plain(torch, ps, ps_kernel, lay, msg, dst_c,
+                              reps: int) -> dict:
+    """psw_spmm at EquiformerV2's scatter shape: one chunk's layout (rows
+    the destinations, sources the chunk's live edges, values 1) applied to
+    the first layer's messages msg (E_c, F), against its plain version,
+    with the bytes-read-once bound (the live message rows, out and the
+    CSR) and the one PyTorch call `graph/segment_ops.py::scatter_sum`
+    runs: an `index_add_` of every edge's message into zeros (a masked
+    edge's message is 0: so is its attention weight)."""
+    out, res = psw_spmm_layout_vs_plain(torch, ps, ps_kernel, lay, msg, reps)
+    n, (E, F) = lay.n_rows, msg.shape
+    d = dst_c.long()
+
+    def library():
+        return torch.zeros((n, F), dtype=torch.float32,
+                           device=msg.device).index_add_(0, d, msg)
+
+    lib = library()
+    torch.cuda.synchronize()
+    lib_ok, lib_err, _ = row_tolerance(lib, out, 1e-4, 1e-4)
+    check(lib_ok, f"index_add_ vs psw_spmm kernel at F={F}: max abs err "
+                  f"{lib_err}")
+    del lib, out
+    library_ms = cuda_ms(torch, library, reps)
+    bytes_once = (n + 1) * 8 + lay.nnz * 8 + (lay.nnz + n) * F * 4
+    return {"edges": E, **res, "library": "index_add_",
+            "library_ms": library_ms, "library_max_abs_err": lib_err,
+            "out_bytes": n * F * 4,
+            **bound(bytes_once, 2 * lay.nnz * F, FP32_OPS_PER_S)}
+
+
+def equiformer_config(torch):
+    """equiformer-v2's full config adapted to the minibatch_lg cell as
+    repro/launch/steps.py::_adapt_gnn_config adapts it at MB_EDGES >=
+    100,000: 41 outputs, 128 species, 4 edge chunks, the PSW ring (one
+    rank here), remat on (no effect under no_grad)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import GNN_SHAPES
+    return dataclasses.replace(
+        get_arch("equiformer-v2").config,
+        d_out=GNN_SHAPES["minibatch_lg"]["n_classes"], n_species=128,
+        edge_chunks=4, gather_mode="psw_ring", remat_layers=True)
+
+
+def phase_equiformer(torch, ps, ps_kernel, sampler, n: int, cfg, dev, args,
+                     clock) -> dict:
+    """Phase 12, EquiformerV2 serving sampled minibatches of phase 11's
+    stand-in (its `NeighborSampler`, n vertices) at `cfg`
+    (`equiformer_config`: 12 layers x 128 channels, l_max 6, m_max 2, 8
+    heads; psw_ring on one rank, 4 edge chunks). Reddit has no geometry,
+    so the node inputs are made as the reference's config says ("unit-ball
+    positions and hashed species ids"): one position a vertex drawn
+    uniformly in the unit ball from --seed (a direction from a normal
+    draw, a radius u^(1/3)), a table on the card; species (vertex id *
+    2654435761 mod 2^32) mod 128. 2 batches of 1,024 seeds at 15-10,
+    padded to MB_NODES / MB_EDGES, each forward timed with CUDA events
+    (one warm-up, 2 timed); the first batch's forward profiled. Gates:
+    logits (MB_NODES, 41), finite; the kernel's forward against the same
+    forward with psw_spmm's plain version swapped in, both under
+    deterministic algorithms (1e-4; the plain one launches nothing); the card's forward in take mode at edge_chunks 1
+    and 4 against the CPU's on a 64-seed batch at 15-10 (padded only to
+    the sampler's 128-multiple), every live node within 1e-4; psw_spmm
+    launches exactly n_layers x edge_chunks a forward; psw_spmm at the
+    scatter shape (the first layer's first chunk, F = 6,272) against its
+    plain version. Logged: the seeds' logits under a random global
+    rotation of every position. Returns the path's launches and the
+    psw_spmm result."""
+    import dataclasses
+    from repro_torch import convert
+    from repro_torch.configs.gnn_common import GNN_SHAPES, MB_EDGES, MB_NODES
+    from repro_torch.models.gnn import equiformer_v2 as eq
+    t_phase = time.perf_counter()
+    cell = GNN_SHAPES["minibatch_lg"]
+    fanouts, B = cell["fanout"], cell["seeds"]
+    K = (cfg.l_max + 1) ** 2
+    log(f"phase 12 EquiformerV2 serving on sampled minibatches: "
+        f"{cfg.n_layers} layers, {cfg.d_hidden} channels, l_max "
+        f"{cfg.l_max}, m_max {cfg.m_max}, {cfg.n_heads} heads, "
+        f"{cfg.edge_chunks} edge chunks, {cfg.gather_mode}; {B} seeds a "
+        f"batch at {fanouts}, padded to {MB_NODES} nodes and {MB_EDGES} "
+        f"edges ({K} x {cfg.d_hidden} irreps an edge)")
+    rng = np.random.default_rng(args.seed + 50)
+    u = rng.standard_normal((n, 3))
+    pos_np = u / np.linalg.norm(u, axis=1, keepdims=True) \
+        * rng.random((n, 1)) ** (1 / 3)
+    pos_table = torch.from_numpy(pos_np.astype(np.float32)).to(dev)
+    species_table = torch.arange(n, device=dev) * 2654435761 % 2**32 % 128
+    del u, pos_np
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 51)
+    params = eq.init_params(gen, cfg, dev)
+
+    def batch_of(sub, device, pos=None):
+        nodes = torch.from_numpy(sub.nodes).to(dev)
+        b = {"species": species_table[nodes],
+             "pos": (pos_table if pos is None else pos)[nodes]}
+        b.update({k: torch.from_numpy(getattr(sub, k)).to(dev)
+                  for k in ("src", "dst", "edge_mask", "node_mask")})
+        return {k: v.to(device) for k, v in b.items()}
+
+    forwards = [0, 0]             # on the card; their psw_spmm launches
+
+    def forward(p, b, c):
+        if b["pos"].device.type == "cuda":
+            forwards[0] += 1
+            forwards[1] += c.n_layers * c.edge_chunks
+        with torch.no_grad():
+            return eq.forward(p, b, c)
+
+    rows, batches = [], []
+    ps.ops.launches = 0                       # the EquiformerV2 path...
+    for i in range(2):
+        seeds = rng.choice(n, B, replace=False)
+        t0 = time.perf_counter()
+        sub = sampler.sample(seeds, fanouts, pad_nodes=MB_NODES,
+                             pad_edges=MB_EDGES)
+        row = {"sample_s": time.perf_counter() - t0,
+               "nodes": int(sub.node_mask.sum()),
+               "edges": int(sub.edge_mask.sum())}
+        check(padding_ok(sub, seeds, n, fanouts, MB_NODES, MB_EDGES),
+              f"12: batch {i}'s sampled subgraph breaks the padding "
+              "invariants")
+        b = batch_of(sub, dev)
+        row["forward_ms"] = cuda_ms(torch, lambda: forward(params, b, cfg),
+                                    2)
+        rows.append(row)
+        batches.append((sub, b))
+        log(f"  batch {i}: " + json.dumps(row))
+    sub, b = batches[0]
+    prof = device_profile(torch, lambda: forward(params, b, cfg), 1)
+    busy = prof["device_busy_ms"]         # 0: the profiler saw no device
+    prof["idle_share"] = 1 - busy / rows[0]["forward_ms"] if busy else None
+    log(f"  profile (forward {rows[0]['forward_ms']:.3f} ms): "
+        + json.dumps(prof))
+
+    # gates on the 1,024-seed batch: shape, finite, kernel against plain;
+    # the first layer's first chunk captured for the kernel's own check
+    captured = []
+    real = eq.psw_spmm_rows
+
+    def capture(lay, x):
+        if not captured:
+            captured.append((lay, x))
+        return real(lay, x)
+
+    eq.psw_spmm_rows = capture
+    try:
+        out = forward(params, b, cfg)
+    finally:
+        eq.psw_spmm_rows = real
+    check(tuple(out.shape) == (MB_NODES, cfg.d_out)
+          and bool(torch.isfinite(out).all()),
+          f"12: logits of shape {tuple(out.shape)} hold NaN or inf")
+    # x crosses the ring in bf16, so a float32 difference of one ulp
+    # upstream (another order of addition anywhere: the edge softmax's
+    # index_add_ adds in whatever order its atomics land) can flip a bf16
+    # rounding and move logits by ~1e-3 after 12 layers. Both forwards of
+    # the gate run under deterministic algorithms, where index_add_ adds
+    # each row's entries in entry order: the plain scatter's order of
+    # addition is then the kernel's, and every other sum's is the same in
+    # both forwards. Warnings only, silenced, where an op has no
+    # deterministic version.
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            det = forward(params, b, cfg)
+            n0 = ps.ops.launches
+            eq.psw_spmm_rows = lambda lay, x: ps.psw_spmm_rows_torch(
+                lay.row_ptr, lay.col, lay.val, x, lay.block)
+            with torch.no_grad():
+                plain = eq.forward(params, b, cfg)
+    finally:
+        eq.psw_spmm_rows = real
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    check(ps.ops.launches == n0,
+          "12: the plain message scatter launched the kernel")
+    errs = {"kernel_vs_plain": float((det - plain).abs().max()),
+            "kernel_vs_plain_bitwise": bool(torch.equal(det, plain)),
+            "default_vs_deterministic": float((out - det).abs().max())}
+    check(torch.allclose(det, plain, rtol=1e-4, atol=1e-4),
+          f"12: EquiformerV2 on psw_spmm vs its plain scatter: max abs "
+          f"err {errs['kernel_vs_plain']}")
+    del plain, det
+
+    # logged: a random global rotation of every position (here, and in
+    # float32 take mode on the 64-seed batch below)
+    q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+    q = torch.from_numpy((q * np.sign(np.linalg.det(q))).astype(np.float32)
+                         ).to(dev)
+    pos_rot = pos_table @ q.T
+    rotated = forward(params, batch_of(sub, dev, pos_rot), cfg)
+    s = sub.n_seeds
+    rot = {"max_abs": float((rotated[:s] - out[:s]).abs().max()),
+           "max_abs_logit": float(out[:s].abs().max())}
+    del rotated, out
+
+    # gate: the card against the CPU on a 64-seed batch, take mode
+    small = sampler.sample(rng.choice(n, 64, replace=False), fanouts)
+    p_cpu = convert.gnn_params_from_arrays(
+        convert.gnn_params_to_arrays(params), params, "cpu")
+    live = torch.from_numpy(small.node_mask)
+    for chunks in (1, 4):
+        c = dataclasses.replace(cfg, gather_mode="take", edge_chunks=chunks)
+        got = forward(params, batch_of(small, dev), c).cpu()
+        t0 = time.perf_counter()
+        want = forward(p_cpu, batch_of(small, "cpu"), c)
+        cpu_s = time.perf_counter() - t0
+        key = f"take_chunks{chunks}_live_vs_cpu"
+        errs[key] = float((got[live] - want[live]).abs().max())
+        errs[f"take_chunks{chunks}_cpu_s"] = cpu_s
+        check(bool(torch.isfinite(got[live]).all())
+              and torch.allclose(got[live], want[live], rtol=1e-4,
+                                 atol=1e-4),
+              f"12: take mode at edge_chunks {chunks}, card vs CPU: max abs "
+              f"err {errs[key]}")
+    rotated = forward(params, batch_of(small, dev, pos_rot), c).cpu()
+    s = small.n_seeds
+    rot["take_64_seeds_max_abs"] = float((rotated[:s] - got[:s]).abs().max())
+    rot["take_64_seeds_max_abs_logit"] = float(got[:s].abs().max())
+    log("  rotation invariance (seeds' logits, logged): " + json.dumps(rot))
+    del p_cpu, pos_rot
+    launches = ps.ops.launches                # ...ends here
+    n_fwd, want_launches = forwards
+    check(launches == want_launches,
+          f"12: {launches} psw_spmm launches for {n_fwd} forwards on the "
+          f"card; expected {want_launches}, n_layers x edge_chunks each")
+    errs["small_batch"] = {"nodes": int(small.node_mask.sum()),
+                           "edges": int(small.edge_mask.sum())}
+    log("  logits (max abs err; gates 1e-4): " + json.dumps(errs))
+
+    lay, msg = captured[0]
+    Ec = msg.shape[0]
+    spmm = psw_spmm_scatter_vs_plain(torch, ps, ps_kernel, lay, msg,
+                                     b["dst"][:Ec], args.reps)
+    log("  psw_spmm at the EquiformerV2 scatter shape: " + json.dumps(spmm))
+    del captured, lay, msg, batches, b, params, pos_table, species_table
+    torch.cuda.empty_cache()
+    res = {"launches": launches, "forwards": n_fwd, "batches": rows,
+           "profile": prof, "rotation": rot, "logit_errs": errs,
+           "psw_spmm": spmm, "phase_s": time.perf_counter() - t_phase}
+    log(f"equiformer path: {launches} psw_spmm launches ({n_fwd} forwards "
+        f"on the card); " + json.dumps({"phase_s": res["phase_s"]}))
     return res
 
 
@@ -2422,9 +2704,15 @@ def main() -> None:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB (phase 10), " + host_memory())
     torch.cuda.reset_peak_memory_stats()
-    gnn = phase_gnn(torch, core, ps, ps_kernel, dev, args, clock)
+    gnn, sampler = phase_gnn(torch, core, ps, ps_kernel, dev, args, clock)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB (phase 11), " + host_memory())
+    torch.cuda.reset_peak_memory_stats()
+    eqv = phase_equiformer(torch, ps, ps_kernel, sampler, args.gnn_vertices,
+                           equiformer_config(torch), dev, args, clock)
+    del sampler
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB (phase 12), " + host_memory())
 
     kernels = [
         kernel_entry("frontier_expand",
@@ -2441,7 +2729,7 @@ def main() -> None:
                      "src/repro_torch/kernels/psw_spmm/csrc/psw_spmm.cu",
                      "src/repro/kernels/psw_spmm/psw_spmm.py:49",
                      agg_launches["psw_spmm"], spmm_res[0],
-                     spmm_res + [gnn["psw_spmm"]]),
+                     spmm_res + [gnn["psw_spmm"], eqv["psw_spmm"]]),
         kernel_entry("embedding_bag",
                      "src/repro_torch/kernels/embedding_bag/csrc/"
                      "embedding_bag.cu",
@@ -2460,6 +2748,7 @@ def main() -> None:
             entry["service_path_launches"] = service_launches[entry["name"]]
         if entry["name"] == "psw_spmm":
             entry["gnn_path_launches"] = gnn["launches"]
+            entry["equiformer_path_launches"] = eqv["launches"]
     log("phase seconds: " + json.dumps(clock.seconds))
     log(json.dumps({"kernels": kernels}))
 

@@ -34,8 +34,6 @@ _MODULES = {
 _NOT_PORTED = {
     "phi3.5-moe-42b-a6.6b": "ROADMAP queue 1, slice 8b: MoE models",
     "qwen3-moe-235b-a22b": "ROADMAP queue 1, slice 8b: MoE models",
-    "equiformer-v2": ("ROADMAP queue 1, slice 6b: graph/psw_ops.py's ring "
-                      "with models/gnn/wigner.py and equiformer_v2.py"),
     "bert4rec": "ROADMAP queue 1, slice 8b: bert4rec",
 }
 

@@ -24,8 +24,9 @@ pytree: `embed`, `layers.attn.wq`, ..., `layers.mlp.w_down`, `layers.ln1`,
 `final_norm`, `lm_head`, each layer leaf with its leading `n_layers` axis.
 A KV cache travels the same way (`k`, `v`; `kv_cache_from_arrays`).
 A GNN's params (`gnn_params_to_arrays` / `gnn_params_from_arrays`: GIN,
-PNA, MeshGraphNet) are nested lists and dicts; a list item's key is its
-index: `encoder.0.w`, `layers.3.mlp.1.b`, `layers.3.eps`, `heads.5.0.w`.
+PNA, MeshGraphNet, EquiformerV2) are nested lists and dicts; a list item's
+key is its index: `encoder.0.w`, `layers.3.mlp.1.b`, `layers.3.eps`,
+`heads.5.0.w`, `layers.11.so2.m2_i`.
 bfloat16 leaves cross as float32, which holds them exactly."""
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ import torch
 from .core.pal import EdgePartition, GraphPAL, IntervalMap
 from .core.psw import DeviceGraph, segment_ptr
 from .kernels.frontier_expand.ops import FrontierPlan, plan_to_device
-from .models.gnn import gin, meshgraphnet, pna
+from .models.gnn import equiformer_v2, gin, meshgraphnet, pna
 from .models.transformer import MOE_TODO, TransformerConfig, _layer_shapes
 
 __all__ = ["device_graph_from_arrays", "device_graph_to_arrays",
@@ -263,7 +264,8 @@ def kv_cache_from_arrays(d: Dict[str, np.ndarray], cfg: TransformerConfig,
 
 
 _GNN_MODELS = {gin.GINConfig: gin, pna.PNAConfig: pna,
-               meshgraphnet.MeshGraphNetConfig: meshgraphnet}
+               meshgraphnet.MeshGraphNetConfig: meshgraphnet,
+               equiformer_v2.EquiformerV2Config: equiformer_v2}
 
 
 def gnn_params_to_arrays(tree) -> Dict[str, np.ndarray]:
@@ -277,7 +279,8 @@ def gnn_params_from_arrays(d: Dict[str, np.ndarray], template_or_cfg,
     """Rebuild a port GNN params tree on `device` from
     `gnn_params_to_arrays` output. The tree's layout, shapes and dtypes are
     a port params tree's (`template_or_cfg`) or those `init_params` gives
-    a GIN, PNA or MeshGraphNet config; keys and shapes must match them."""
+    a GIN, PNA, MeshGraphNet or EquiformerV2 config; keys and shapes must
+    match them."""
     template = template_or_cfg
     if dataclasses.is_dataclass(template_or_cfg):
         model = _GNN_MODELS.get(type(template_or_cfg))

@@ -1,7 +1,7 @@
 """Message-passing substrate built on PAL storage (port of the reference
 `repro/graph/`): segment ops, edge-chunked aggregation, the neighbour
-sampler and the device layouts. `psw_ops`, the multi-device PSW ring, is
-ROADMAP queue 1's slice 6b."""
+sampler, the device layouts and `psw_ops`, the PSW ring over
+`torch.distributed`."""
 from .segment_ops import (
     aggregate_multi,
     degree,

@@ -127,27 +127,28 @@ def _ids_on(ids, dev: torch.device) -> torch.Tensor:
 
 
 def prepare_rows(src, dst, n_nodes: int, block: int = 128,
-                 device=None) -> RowLayout:
-    """An edge list (tensors on any device, or array-likes, of ids in
-    [0, n_nodes)) -> its RowLayout on `device` (None: the GPU). Multi-edges
-    become one entry whose value is their count, as the tiles count
-    them."""
+                 device=None, n_src: int = None) -> RowLayout:
+    """An edge list (tensors on any device, or array-likes, of destination
+    ids in [0, n_nodes) and source ids in [0, n_src), n_src defaulting to
+    n_nodes) -> its RowLayout of n_nodes rows on `device` (None: the GPU).
+    Multi-edges become one entry whose value is their count, as the tiles
+    count them."""
     dev = _resolve_device(device, "prepare_rows")
-    if n_nodes >= 2**31:
-        raise ValueError(f"{n_nodes} nodes: source ids are int32")
+    n_src = n_nodes if n_src is None else n_src
+    if n_src >= 2**31:
+        raise ValueError(f"{n_src} sources: source ids are int32")
     s, d = _ids_on(src, dev), _ids_on(dst, dev)
     if s.shape != d.shape or s.dim() != 1:
         raise ValueError(f"src {tuple(s.shape)} and dst {tuple(d.shape)} "
                          "must be one-dimensional and of one length")
     if s.numel() and bool((torch.minimum(s.min(), d.min()) < 0)
-                          | (torch.maximum(s.max(), d.max()) >= n_nodes)):
-        raise ValueError(f"source and destination ids must lie in "
-                         f"[0, {n_nodes})")
-    keys, counts = torch.unique_consecutive(torch.sort(d * n_nodes + s).values,
+                          | (s.max() >= n_src) | (d.max() >= n_nodes)):
+        raise ValueError(f"source ids must lie in [0, {n_src}) and "
+                         f"destination ids in [0, {n_nodes})")
+    keys, counts = torch.unique_consecutive(torch.sort(d * n_src + s).values,
                                             return_counts=True)
-    rows = keys // n_nodes
-    return _layout(rows, keys - rows * n_nodes, counts, n_nodes, n_nodes,
-                   block)
+    rows = keys // n_src
+    return _layout(rows, keys - rows * n_src, counts, n_nodes, n_src, block)
 
 
 def compact_tiles(coords: torch.Tensor, tiles: torch.Tensor,
@@ -190,7 +191,9 @@ def prepare_blocks(src: np.ndarray, dst: np.ndarray, n_nodes: int,
 
 def psw_spmm_rows(layout: RowLayout, x: torch.Tensor) -> torch.Tensor:
     """A @ x over a RowLayout on x's device: x (n_src, F) float32. Returns
-    (n_rows, F); a row without entries is zero."""
+    (n_rows, F); a row without entries is zero. The kernel has no
+    backward: on a CUDA x that needs a gradient it raises rather than
+    return a result autograd cannot see through."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"x must be a torch.Tensor, not {type(x).__name__}")
     if (x.dtype != torch.float32 or x.dim() != 2
@@ -201,6 +204,11 @@ def psw_spmm_rows(layout: RowLayout, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"layout on {layout.row_ptr.device}, x on "
                          f"{x.device}: expected one device")
     if x.device.type == "cuda":
+        if x.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "psw_spmm_rows has no backward on CUDA tensors (ROADMAP "
+                "queue 1, slice 8b): call it under torch.no_grad(), or on "
+                "the CPU, whose plain version autograd differentiates")
         out = torch.empty((layout.n_rows, x.shape[1]), dtype=torch.float32,
                           device=x.device)
         if out.numel():

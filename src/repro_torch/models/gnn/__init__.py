@@ -1,4 +1,3 @@
-"""GNN models (port of the reference `repro/models/gnn/`): GIN, PNA and
-MeshGraphNet. EquiformerV2 and its Wigner algebra wait for the PSW ring
-(`graph/psw_ops.py`), ROADMAP queue 1's slice 6b."""
-from . import common, gin, meshgraphnet, pna
+"""GNN models (port of the reference `repro/models/gnn/`): GIN, PNA,
+MeshGraphNet and EquiformerV2 with its Wigner algebra."""
+from . import common, equiformer_v2, gin, meshgraphnet, pna, wigner

@@ -1,0 +1,135 @@
+"""Run a function on a ring of spawned CPU processes (`torch.distributed`
+over gloo, rendezvous through a file store), for the port's PSW ring tests.
+
+The children import only torch, numpy and the port. Each runs
+`target(rank, world, *args)` inside an initialised process group and sends
+back its result (or its traceback); `spawn_ring` returns the results by
+rank, or raises if a child failed or the ring did not finish in time."""
+import multiprocessing
+import os
+import queue
+import time
+import traceback
+
+
+def _child(target, rank, world, store, results, args):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        try:
+            results.put((rank, True, target(rank, world, *args)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+
+
+def spawn_ring(target, world, tmp_path, *args, timeout=120.0):
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    store = os.path.join(str(tmp_path), f"ring_store_{time.time_ns()}")
+    procs = [ctx.Process(target=_child,
+                         args=(target, r, world, store, results, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out, errors = {}, []
+    deadline = time.monotonic() + timeout
+    try:
+        while len(out) + len(errors) < world:
+            try:
+                rank, ok, res = results.get(
+                    timeout=max(0.1, deadline - time.monotonic()))
+            except queue.Empty:
+                raise TimeoutError(f"the ring of {world} did not finish in "
+                                   f"{timeout} s") from None
+            if ok:
+                out[rank] = res
+            else:
+                errors.append(f"rank {rank}:\n{res}")
+                break          # the others may wait on it forever
+    finally:
+        for p in procs:
+            p.join(timeout=max(0.1, deadline - time.monotonic())
+                   if not errors else 1.0)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    if errors:
+        raise AssertionError("\n".join(errors))
+    return [out[r] for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# ring targets: each rank builds the global arrays from the seed and works
+# on its shard (rows rank * n_loc ..., edges rank * e_loc ...)
+# ---------------------------------------------------------------------------
+def ring_inputs(n, e, f, seed, world):
+    """(x, idx, v, idx_aligned): the global arrays of the ring-op checks;
+    idx_aligned holds e // world ids in each rank's own rows, in rank
+    order."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    idx = rng.integers(0, n, e)
+    v = rng.standard_normal((e, f)).astype(np.float32)
+    n_loc, e_loc = n // world, e // world
+    aligned = (rng.integers(0, n_loc, (world, e_loc))
+               + (np.arange(world) * n_loc)[:, None]).reshape(-1)
+    return x, idx, v, aligned
+
+
+def ring_ops(rank, world, n, e, f, seed):
+    """The ring and local ops on this rank's shard, with the gradients of
+    sum(ring_gather(x)^2) and sum(ring_scatter_sum(v)^2)."""
+    import torch
+    from repro_torch.graph import psw_ops as po
+    x, idx, v, aligned = ring_inputs(n, e, f, seed, world)
+    n_loc, e_loc = n // world, e // world
+    rows = slice(rank * n_loc, (rank + 1) * n_loc)
+    edges = slice(rank * e_loc, (rank + 1) * e_loc)
+    ring = po.ring_mesh(n_loc)
+    assert (ring.rank, ring.size, ring.n) == (rank, world, n)
+    xl = torch.from_numpy(x[rows]).requires_grad_()
+    il = torch.from_numpy(idx[edges])
+    gathered = po.ring_gather(xl, il, ring)
+    (gathered ** 2).sum().backward()
+    vl = torch.from_numpy(v[edges]).requires_grad_()
+    scattered = po.ring_scatter_sum(vl, il, n, ring)
+    (scattered ** 2).sum().backward()
+    xb = torch.from_numpy(x[rows]).to(torch.bfloat16).requires_grad_()
+    gb = po.ring_gather(xb, il, ring)
+    gb.float().sum().backward()
+    al = torch.from_numpy(aligned[edges])
+    vs = torch.from_numpy(v[edges, 0])
+    return {"gather": gathered.detach().numpy(), "gx": xl.grad.numpy(),
+            "scatter": scattered.detach().numpy(), "gv": vl.grad.numpy(),
+            "gather_bf16": gb.detach().float().numpy(),
+            "gx_bf16_dtype": str(xb.grad.dtype),
+            "gx_bf16": xb.grad.float().numpy(),
+            "local_gather": po.local_gather(torch.from_numpy(x[rows]), al,
+                                            ring).numpy(),
+            "local_scatter": po.local_scatter_sum(
+                torch.from_numpy(v[edges]), al, n, ring).numpy(),
+            "local_softmax": po.local_edge_softmax(vs, al, n, ring).numpy()}
+
+
+def equiformer_shard(rank, world, arrays, cfg_kw, batch):
+    """This rank's rows of the psw_ring forward of a PAL-ordered batch
+    (its edges the rank's e // world, every dst in its rows)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.models.gnn import equiformer_v2 as eq
+    cfg = eq.EquiformerV2Config(**cfg_kw)
+    params = convert.gnn_params_from_arrays(arrays, cfg, "cpu")
+    n_loc = batch["species"].shape[0] // world
+    e_loc = batch["src"].shape[0] // world
+    mine = {}
+    for k, a in batch.items():
+        per = n_loc if k in ("species", "pos", "node_mask") else e_loc
+        mine[k] = torch.from_numpy(a[rank * per:(rank + 1) * per])
+    with torch.no_grad():
+        return eq.forward(params, mine, cfg).numpy()

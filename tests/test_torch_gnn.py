@@ -1,6 +1,7 @@
 """The port's GNNs (repro_torch/models/gnn: GIN, PNA, MeshGraphNet), their
-configs and params conversion against the reference's, on the CPU (GIN's
-neighbour sum takes psw_spmm's plain version there).
+configs and params conversion (EquiformerV2's too) against the
+reference's, on the CPU (GIN's neighbour sum takes psw_spmm's plain
+version there).
 
 The reference's params are initialised with its own jax key and carried
 across with `repro_torch.convert.gnn_params_{to,from}_arrays`, so both
@@ -17,6 +18,7 @@ import torch
 
 from repro.configs import get_arch as ref_get_arch
 from repro.graph.sampler import NeighborSampler as RefSampler
+from repro.models.gnn import equiformer_v2 as req
 from repro.models.gnn import gin as rgin
 from repro.models.gnn import meshgraphnet as rmgn
 from repro.models.gnn import pna as rpna
@@ -25,12 +27,15 @@ import repro_torch.core as T
 from repro_torch import configs, convert
 from repro_torch.graph import NeighborSampler
 from repro_torch.kernels.psw_spmm import ops as ps_ops
+from repro_torch.models.gnn import equiformer_v2 as eq
 from repro_torch.models.gnn import gin, meshgraphnet, pna
 from test_torch_multihop import N, bulk
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 MODELS = {"gin-tu": (rgin, gin), "pna": (rpna, pna),
           "meshgraphnet": (rmgn, meshgraphnet)}
+# EquiformerV2's forward is held in tests/test_torch_equiformer.py
+ALL_MODELS = {**MODELS, "equiformer-v2": (req, eq)}
 
 
 def both(arch, seed, **replace):
@@ -188,7 +193,8 @@ def test_gin_sum_aggregation_counts_multiplicity():
     assert float((o1d[2] - o2d[2]).abs().max()) > 1e-6
 
 
-@pytest.mark.parametrize("arch", ["gin-tu", "pna", "meshgraphnet"])
+@pytest.mark.parametrize("arch", ["gin-tu", "pna", "meshgraphnet",
+                                  "equiformer-v2"])
 def test_arch_specs_match_reference(arch):
     want, got = ref_get_arch(arch), configs.get_arch(arch)
     for name in ("name", "family", "source"):
@@ -203,17 +209,21 @@ def test_arch_specs_match_reference(arch):
             dataclasses.asdict(want.shapes[k])
 
 
-def test_equiformer_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        configs.get_arch("equiformer-v2")
+def test_equiformer_resolves_in_the_port():
+    """EquiformerV2 is ported (slice 6b): its spec is the reference's (the
+    parametrized spec test), and the registry refuses only slice 8b's."""
+    assert configs.get_arch("equiformer-v2").config == eq.EquiformerV2Config()
+    from repro_torch.configs.base import _NOT_PORTED
+    assert all("slice 8b" in why for why in _NOT_PORTED.values())
 
 
-@pytest.mark.parametrize("arch", ["gin-tu", "pna", "meshgraphnet"])
+@pytest.mark.parametrize("arch", ["gin-tu", "pna", "meshgraphnet",
+                                  "equiformer-v2"])
 def test_params_round_trip_bytes(arch):
     ref_cfg = ref_get_arch(arch).smoke_config
     cfg = configs.get_arch(arch).smoke_config
     d = convert.gnn_params_to_arrays(
-        MODELS[arch][0].init_params(jax.random.PRNGKey(3), ref_cfg))
+        ALL_MODELS[arch][0].init_params(jax.random.PRNGKey(3), ref_cfg))
     p = convert.gnn_params_from_arrays(d, cfg, "cpu")
     back = convert.gnn_params_to_arrays(p)
     assert list(back) == list(d)
@@ -223,8 +233,8 @@ def test_params_round_trip_bytes(arch):
     # a port tree is a template too, and the layout is the port's own init
     again = convert.gnn_params_from_arrays(back, p, "cpu")
     assert convert.gnn_params_to_arrays(again).keys() == d.keys()
-    mine = MODELS[arch][1].init_params(torch.Generator().manual_seed(0), cfg,
-                                       "cpu")
+    mine = ALL_MODELS[arch][1].init_params(torch.Generator().manual_seed(0),
+                                           cfg, "cpu")
     assert {k: v.shape for k, v in convert.gnn_params_to_arrays(
         mine).items()} == {k: v.shape for k, v in d.items()}
     with pytest.raises(ValueError, match="keys differ"):

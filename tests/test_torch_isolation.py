@@ -41,7 +41,9 @@ def test_every_module_imports_without_jax_or_repro():
                  "models.gnn", "models.gnn.common", "models.gnn.gin",
                  "models.gnn.pna", "models.gnn.meshgraphnet",
                  "configs.gnn_common", "configs.gin_tu", "configs.pna",
-                 "configs.meshgraphnet"):
+                 "configs.meshgraphnet", "graph.psw_ops",
+                 "models.gnn.wigner", "models.gnn.equiformer_v2",
+                 "configs.equiformer_v2"):
         assert "repro_torch." + name in mods, name
     code = (
         "import sys\n"

@@ -728,3 +728,134 @@ def test_gin_sampled_batch_on_the_card_matches_plain(cuda, monkeypatch):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got.cpu(), cpu, rtol=1e-4, atol=1e-4)
+
+
+def test_psw_spmm_rows_refuses_a_gradient_on_the_card(cuda):
+    """The kernel has no backward: an x that needs a gradient raises
+    (GIN's or EquiformerV2's forward under grad on the card would
+    otherwise drop their gradients silently); under no_grad it runs."""
+    lay = ps.prepare_rows([0, 1, 1], [1, 0, 1], 2, device=cuda)
+    x = torch.ones((2, 4), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ps.psw_spmm_rows(lay, x)
+    with torch.no_grad():
+        got = ps.psw_spmm_rows(lay, x)
+    assert torch.equal(got, torch.tensor([[1.0] * 4, [2.0] * 4],
+                                         device=cuda))
+
+
+def test_psw_spmm_at_equiformer_width_with_a_hub(cuda):
+    """EquiformerV2's message scatter shape: F = 6,272 (49 irreps x 128
+    channels, 49 of the kernel's 128-column slabs), sources the edge ids
+    (n_src = E, not n, some edges left out as masked), and destination 5
+    given 300 edges: a hub row, so its chunks go through the (n_chunks, F)
+    scratch and pass 2."""
+    rng = np.random.default_rng(27)
+    n, E, F = 3000, 4000, 6272
+    dst = rng.integers(0, n, E)
+    dst[:300] = 5
+    live = np.flatnonzero(rng.random(E) < 0.9)
+    msg = torch.from_numpy(rng.standard_normal((E, F)).astype(np.float32)
+                           ).to(cuda)
+    lay = ps.prepare_rows(live, dst[live], n, device=cuda, n_src=E)
+    assert lay.n_src == E and 5 in lay.hub_rows.tolist()
+    before = ps.ops.launches
+    got = ps.psw_spmm_rows(lay, msg)
+    torch.cuda.synchronize()
+    assert ps.ops.launches == before + 1
+    assert torch.equal(got, ps.psw_spmm_rows(lay, msg))
+    plain = ps.psw_spmm_rows_torch(lay.row_ptr, lay.col, lay.val, msg,
+                                   lay.block)
+    assert_rows_close(got, plain, 1e-5)
+    # where index_add_ adds in index order (deterministic algorithms), the
+    # plain version adds a row's block partials as the kernel does:
+    # bitwise equal off the hub
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ordered = ps.psw_spmm_rows_torch(lay.row_ptr, lay.col, lay.val, msg,
+                                         lay.block)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    rest = torch.ones(n, dtype=torch.bool, device=cuda)
+    rest[lay.hub_rows] = False
+    assert torch.equal(got[rest], ordered[rest])
+    d = torch.from_numpy(dst[live]).to(cuda)
+    edge = torch.zeros((n, F), dtype=torch.float64, device=cuda).index_add_(
+        0, d, msg[torch.from_numpy(live).to(cuda)].double())
+    assert_rows_close(got, edge, 1e-4)
+
+
+def test_equiformer_sampled_batch_on_the_card_matches_plain(cuda,
+                                                            monkeypatch):
+    """EquiformerV2 at a narrow width (2 layers, d 16, the published l_max
+    6, m_max 2; 4 heads) on a sampled minibatch, psw_ring on one rank in
+    2 edge chunks: the message scatter through the psw_spmm kernel (one
+    layout a chunk, one launch a chunk and layer) against the same
+    forward through its plain version on the card, bitwise under
+    deterministic algorithms; and the take-mode forward on the card
+    against the CPU's at 1e-4. Positions are unit-ball draws a vertex,
+    species a hash of its id, as chip_smoke.py's phase 12 makes them."""
+    import dataclasses
+    from repro_torch import convert
+    from repro_torch.core import GraphPAL
+    from repro_torch.graph import NeighborSampler
+    from repro_torch.models.gnn import equiformer_v2 as eq
+    rng = np.random.default_rng(28)
+    n, e = 20_000, 300_000
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    g = GraphPAL.from_edges(src, dst, n_partitions=8, max_id=n - 1)
+    sub = NeighborSampler(g, seed=28).sample(
+        rng.choice(n, 64, replace=False), (15, 10))
+    u = rng.standard_normal((n, 3))
+    pos = (u / np.linalg.norm(u, axis=1, keepdims=True)
+           * rng.random((n, 1)) ** (1 / 3)).astype(np.float32)
+    species = (np.arange(n) * 2654435761 % 2**32 % 128).astype(np.int64)
+    cfg = eq.EquiformerV2Config(n_layers=2, d_hidden=16, l_max=6, m_max=2,
+                                n_heads=4, n_species=128, d_out=41,
+                                edge_chunks=2, gather_mode="psw_ring")
+    params = eq.init_params(torch.Generator().manual_seed(28), cfg, "cpu")
+
+    def batch(dev):
+        nodes = sub.nodes
+        return {"species": torch.from_numpy(species[nodes]).to(dev),
+                "pos": torch.from_numpy(pos[nodes]).to(dev),
+                "src": torch.from_numpy(sub.src).to(dev),
+                "dst": torch.from_numpy(sub.dst).to(dev),
+                "edge_mask": torch.from_numpy(sub.edge_mask).to(dev),
+                "node_mask": torch.from_numpy(sub.node_mask).to(dev)}
+
+    on_card = convert.gnn_params_from_arrays(
+        convert.gnn_params_to_arrays(params), params, cuda)
+    # card against CPU in take mode: float32 throughout, so another order
+    # of addition on the card moves logits by float32 ulps only
+    take = dataclasses.replace(cfg, gather_mode="take")
+    with torch.no_grad():
+        card = eq.forward(on_card, batch(cuda), take)
+        cpu = eq.forward(params, batch("cpu"), take)
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-4, atol=1e-4)
+    # kernel against plain in psw_ring mode, x in bf16 through the ring:
+    # under deterministic algorithms index_add_ adds in index order, so
+    # the plain scatter adds as the kernel does and no bf16 rounding of x
+    # can flip between the two forwards
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        before = ps.ops.launches
+        with torch.no_grad():
+            got = eq.forward(on_card, batch(cuda), cfg)
+            torch.cuda.synchronize()
+            assert (ps.ops.launches
+                    == before + cfg.n_layers * cfg.edge_chunks)
+            monkeypatch.setattr(eq, "psw_spmm_rows", lambda lay, x:
+                                ps.psw_spmm_rows_torch(lay.row_ptr, lay.col,
+                                                       lay.val, x, lay.block))
+            plain = eq.forward(on_card, batch(cuda), cfg)
+            torch.cuda.synchronize()
+            assert (ps.ops.launches
+                    == before + cfg.n_layers * cfg.edge_chunks)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert tuple(got.shape) == (sub.nodes.shape[0], 41)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, plain)
