@@ -12,8 +12,9 @@ first use (one nvcc per kernel, all started together). The main path is the
 graph store read by multi-hop queries and analysed by PSW. Phase 9, the
 disk tier, runs first, right after the build, while the process's peak RSS
 is still its baseline; phases 0-8 follow, then phase 10, the service and
-shard tiers, phase 11, GNN serving on sampled minibatches, and phase 12,
-EquiformerV2 serving from phase 11's sampler, runs last:
+shard tiers, phase 11, GNN serving on sampled minibatches, phase 12,
+EquiformerV2 serving from phase 11's sampler, phase 13, MoE serving, and
+phase 14, bert4rec serving, runs last:
 
   9. the disk tier at benchmarks/bench_disk.py's scale-1.0 configuration
      (a 96 MB data budget; --disk-budget-mb sets it, and with it the edge
@@ -160,7 +161,39 @@ EquiformerV2 serving from phase 11's sampler, runs last:
      batch; n_layers x edge_chunks launches a forward; psw_spmm at the
      scatter shape (F = 6,272) within rowwise 1e-5 of its plain version,
      with its time, bound and the index_add_ yardstick. Logged: the seeds'
-     logits under a random global rotation.
+     logits under a random global rotation;
+ 13. MoE serving (`phase_moe`): qwen3-moe-235b-a22b (d 4,096, 64 heads, 4
+     kv heads, d_head 128, qk_norm, 128 experts, top-8, d_ff_expert 1,536,
+     vocab 151,936 -> 152,064) and phi3.5-moe-42b-a6.6b (32 heads, 8 kv
+     heads, 16 experts, top-2, d_ff_expert 6,400, vocab 32,064) at full
+     width, each cut to 4 layers (MOE_LAYERS) with bf16 params drawn on
+     the card from --seed; `serve_requests` with 4 prompts of 4,096 tokens
+     in one batch, 16 generated, every prefill layer's attention on the
+     flash_attention kernel and its MoE in 2 sequence chunks of 8,192
+     tokens (qwen3-moe: cap 640); the kernel on layer 0's q/k/v at that
+     shape within 2e-2 of its plain version (GQA 16 and 4); then one MoE
+     layer at the prefill shape timed with CUDA events against its bf16
+     expert FLOPs, and the greedy tokens and prefill routings of the plain
+     attention path (logged). Gates on a 2-layer fp32 cut of qwen3-moe at
+     full width, 4 prompts of 256 tokens, capacity factor E/K (no token
+     dropped, so a routing touches only its own sequence): the fp32 kernel
+     on layer 0's q/k/v within 2e-5 of its plain version; (a) prefill
+     through the kernel against the plain attention, every token-layer
+     routing compared first (at most 1% may differ), last-token logits
+     within 1e-4 in every prompt whose routings all agree (one at least);
+     (b) decode against forward over 8 steps within 1e-4; (c) finite
+     logits, tokens below padded_vocab;
+ 14. bert4rec serving at its full config (`phase_bert4rec`: 1,000,000
+     items, a 1,000,192 x 64 fp32 table, 2 blocks, 2 heads, 200 slots;
+     params drawn on the card): serve_p99, `score_all_items` of the first
+     512 of phase 8's histories, (512, 1,000,192) fp32 scores and their
+     top 100; retrieval_cand, `score_candidates` of one history against
+     1,000,000 candidate ids and their top 100; encode, scoring, top-k
+     and both requests timed with CUDA events, the scoring pass against
+     its bound. Gates: 8 rows within 1e-4 of the CPU's, the candidates'
+     scores within 1e-5 of the full scores at their columns, no NaN in a
+     row with an item. serve_bulk (B = 262,144) needs a chunked top-k
+     serve step and is left for later.
 
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 1-2 for frontier_expand, phase 6's aggregation calls for
@@ -174,7 +207,9 @@ hops in b-d for frontier_expand, e's `psw_spmm_edges` for psw_spmm) on the
 in every GIN forward of its 4 batches, which must be 5 a forward) on the
 `gnn path:` line and as `gnn_path_launches`; phase 12's (psw_spmm in
 every EquiformerV2 forward on the card, n_layers x edge_chunks each) on
-the `equiformer path:` line and as `equiformer_path_launches`. Any failed
+the `equiformer path:` line and as `equiformer_path_launches`; phase 13's
+(flash_attention in both MoE models' `serve_requests`, n_layers a
+prefill) on the `moe path:` line and as `moe_path_launches`. Any failed
 check exits non-zero. The
 second-to-last line is the card's name and power limit from nvidia-smi;
 the last line is
@@ -2564,6 +2599,343 @@ def phase_equiformer(torch, ps, ps_kernel, sampler, n: int, cfg, dev, args,
     return res
 
 
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "phi3.5-moe-42b-a6.6b")
+MOE_LAYERS, MOE_REQUESTS, MOE_GEN = 4, 4, 16   # depth cut; 1 batch of 4
+
+
+class routings:
+    """Every routing group's expert ids (t, K), each token's set sorted,
+    recorded from the model's `route_tokens` for the duration."""
+
+    def __init__(self, tf):
+        self.tf, self.ids = tf, []
+
+    def __enter__(self):
+        self.real = self.tf.route_tokens
+
+        def record(router, xg, mo):
+            out = self.real(router, xg, mo)
+            self.ids.append(out[2].sort(-1).values)
+            return out
+
+        self.tf.route_tokens = record
+        return self
+
+    def __exit__(self, *exc):
+        self.tf.route_tokens = self.real
+
+
+def moe_layer_vs_bound(torch, tf, params, cfg, batch: int, seq: int, dev,
+                       seed: int, reps: int) -> dict:
+    """Layer 0's `moe_mlp` at the prefill shape (random unit-variance bf16
+    input) timed with CUDA events, its three expert products alone, the
+    bound (the expert FLOPs, 6·E·cap·d·f a routing group, in bf16) and a
+    profile of one call."""
+    mo, d = cfg.moe, cfg.d_model
+    lp = {k: v[0] for k, v in params["layers"]["mlp"].items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    h = torch.randn((batch, seq, d), generator=gen, device=dev).to(
+        cfg.compute_dtype)
+    chunk = tf.MOE_SEQ_CHUNK
+    groups = seq // chunk if seq > chunk and seq % chunk == 0 else 1
+    cap = tf.moe_capacity(mo, batch * seq // groups)
+    E, f = mo.n_experts, mo.d_ff_expert
+    ein = torch.randn((E, cap, d), generator=gen, device=dev).to(
+        cfg.compute_dtype)
+    with torch.no_grad():
+        out, aux = tf.moe_mlp(lp, h, cfg)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(aux)),
+              f"{cfg.moe}: moe_mlp gave non-finite values")
+        res = {"B": batch, "S": seq, "groups": groups, "cap": cap,
+               "E": E, "K": mo.top_k, "d": d, "f": f,
+               "ms": cuda_ms(torch, lambda: tf.moe_mlp(lp, h, cfg), reps),
+               "experts_ms": groups * cuda_ms(torch, lambda: tf.expert_ffn(
+                   lp, ein, cfg.compute_dtype), reps)}
+        res["profile"] = device_profile(torch, lambda: tf.moe_mlp(lp, h, cfg),
+                                        1)
+    flops = groups * 6 * E * cap * d * f
+    res.update(bound(3 * E * d * f * 2 + 2 * batch * seq * d * 2, flops,
+                     BF16_OPS_PER_S))
+    res["tflops_per_s"] = flops / (res["ms"] * 1e-3) / 1e12
+    res["dispatch_and_combine_ms"] = res["ms"] - res["experts_ms"]
+    return res
+
+
+def moe_gates(torch, fa, fa_kernel, tf, cfg, dev, args) -> dict:
+    """Phase 13's gates on a 2-layer fp32 cut of `cfg` at full width and
+    capacity factor E/K, where no token is dropped, so a routing that
+    differs changes only its own prompt: the fp32 kernel on layer 0's
+    q/k/v against its plain version; (a) prefill through the kernel
+    against prefill through the plain attention, the routings of both
+    compared first, then the last-token logits of every prompt whose
+    routings all agree; (b) decode against forward; (c) finite logits."""
+    import dataclasses
+    mo = cfg.moe
+    cfg2 = dataclasses.replace(
+        cfg, n_layers=2, param_dtype=torch.float32,
+        compute_dtype=torch.float32, moe=dataclasses.replace(
+            mo, capacity_factor=mo.n_experts / mo.top_k))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 43)
+    p2 = tf.init_params(cfg2, gen, dev)
+    B2, S2, steps = 4, 256, 8
+    toks = torch.from_numpy(np.random.default_rng(args.seed + 44).integers(
+        1, cfg.vocab_size, (B2, S2 + steps))).to(dev)
+    res = {}
+    with torch.no_grad():
+        q, k, v = attention_inputs(torch, tf, p2, cfg2, toks[:, :S2])
+        res["attention"] = attention_vs_plain(torch, fa, fa_kernel, q, k, v,
+                                              2e-5, max(2, args.reps // 4))
+        del q, k, v
+        with routings(tf) as rk:
+            lk, cache = tf.prefill(p2, toks[:, :S2], cfg2, S2 + steps,
+                                   cache_dtype=torch.float32)
+        with routings(tf) as rp, plain_attention(tf, fa):
+            lp, _ = tf.prefill(p2, toks[:, :S2], cfg2, S2 + steps,
+                               cache_dtype=torch.float32)
+        check(len(rk.ids) == len(rp.ids) == cfg2.n_layers,
+              f"{len(rk.ids)} / {len(rp.ids)} routing groups for 2 layers")
+        pairs = [(a != b).any(-1).reshape(B2, S2)
+                 for a, b in zip(rk.ids, rp.ids)]
+        differ = sum(int(p.sum()) for p in pairs)
+        total = B2 * S2 * cfg2.n_layers
+        agree = ~torch.stack(pairs).any(0).any(-1)           # (B2,)
+        res.update(routings_differ=differ, token_layers=total,
+                   prompts_compared=int(agree.sum()),
+                   prefill_kernel_vs_plain=float((lk - lp)[agree].abs()
+                                                 .max()))
+        check(differ <= 0.01 * total,
+              f"{differ} of {total} token-layer routings differ between "
+              "the kernel's and the plain prefill")
+        check(bool(agree.any()) and torch.allclose(
+            lk[agree], lp[agree], rtol=1e-4, atol=1e-4),
+              f"last-token logits of the prompts whose routings agree: {res}")
+        del lp
+        full, aux = tf.forward(p2, toks, cfg2)
+        check(bool(torch.isfinite(full).all()) and bool(torch.isfinite(aux)),
+              "2-layer fp32 forward: non-finite logits")
+        res["prefill_vs_forward"] = float((lk - full[:, S2 - 1]).abs().max())
+        check(torch.allclose(lk, full[:, S2 - 1], rtol=1e-4, atol=1e-4),
+              f"prefill vs forward at capacity factor E/K: {res}")
+        dec = 0.0
+        for i in range(S2, S2 + steps):
+            lg, cache = tf.decode_step(p2, cache, toks[:, i:i + 1], i, cfg2)
+            err = float((lg - full[:, i]).abs().max())
+            check(torch.allclose(lg, full[:, i], rtol=1e-4, atol=1e-4),
+                  f"decode logits at {i} vs forward: max abs err {err}")
+            dec = max(dec, err)
+        res["decode_vs_forward"] = dec
+        res["aux"] = float(aux)
+    del p2, full, cache, lk
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe(torch, dev, args, clock, fa_kernel) -> dict:
+    """Phase 13, MoE serving: qwen3-moe and phi3.5-moe at full width, cut
+    to MOE_LAYERS layers with bf16 params drawn on the card, through
+    `serve_requests` (every prefill layer's attention on the
+    flash_attention kernel, its MoE dispatch in torch); the kernel against
+    its plain version on layer 0's q/k/v at the serve shape; then one MoE
+    layer timed against its bound, the greedy tokens and prefill routings
+    of the plain path, and, for qwen3-moe, the gates of `moe_gates`.
+    Returns the path's flash_attention launches and the results."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import transformer as tf
+    t_phase = time.perf_counter()
+    R, B, P, G = MOE_REQUESTS, args.lm_batch, args.prompt_len, MOE_GEN
+    chunks = P // tf.MOE_SEQ_CHUNK if P > tf.MOE_SEQ_CHUNK \
+        and P % tf.MOE_SEQ_CHUNK == 0 else 1
+    res = {"launches": 0}
+    for i, arch in enumerate(MOE_ARCHS):
+        full = get_arch(arch).config
+        cfg = dataclasses.replace(full, n_layers=MOE_LAYERS,
+                                  param_dtype=torch.bfloat16)
+        mo = cfg.moe
+        log(f"phase 13 MoE serving, {arch}: {cfg.n_layers} of "
+            f"{full.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
+            f"kv {cfg.n_kv_heads}, d_head {cfg.head_dim}, {mo.n_experts} "
+            f"experts, top-{mo.top_k}, d_ff_expert {mo.d_ff_expert}, vocab "
+            f"{cfg.vocab_size} -> {cfg.padded_vocab}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 40 + i)
+        params = clock(f"{arch}: init_params (bf16, on the device)",
+                       tf.init_params, cfg, gen, dev)
+        n = sum(t.numel() for t in leaves(params))
+        check(n == cfg.n_params, f"{n} params, config says {cfg.n_params}")
+        prompts = np.random.default_rng(args.seed + 41 + i).integers(
+            1, cfg.vocab_size, (R, P))
+        fa.ops.launches = 0                    # the MoE serving path...
+        with routings(tf) as rk:
+            tokens, stats = clock(f"{arch}: serve_requests ({R} requests "
+                                  f"of {P} tokens, batch {B}, {G} "
+                                  "generated)", serve_requests, params, cfg,
+                                  prompts, B, G, dev)
+        launches = fa.ops.launches             # ...ends here
+        check(launches == cfg.n_layers * len(stats),
+              f"{launches} flash_attention launches for {len(stats)} "
+              f"prefills of {cfg.n_layers} layers")
+        check(tokens.shape == (R, G) and tokens.min() >= 0
+              and tokens.max() < cfg.padded_vocab,
+              f"{arch} serve_requests: bad tokens")
+        out = {"params": n, "launches": launches,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "batches": [{**s, "decode_ms_per_token": s["decode_s"]
+                            / max(G - 1, 1) * 1e3} for s in stats]}
+        for s in out["batches"]:
+            log(f"  batch of {s['requests']}: prefill {s['prefill_s']:.3f} "
+                f"s, decode {s['decode_ms_per_token']:.2f} ms/token, "
+                f"latency {s['latency_s']:.3f} s")
+        log(f"  {n} params ({n * 2 / 1e9:.2f} GB bf16), {launches} "
+            f"flash_attention launches ({cfg.n_layers} per prefill), peak "
+            f"device memory {out['peak_gib']:.2f} GiB")
+        res["launches"] += launches
+        toks = torch.from_numpy(prompts[:B]).to(dev)
+        q, k, v = attention_inputs(torch, tf, params, cfg, toks)
+        out["attention"] = attention_vs_plain(torch, fa, fa_kernel, q, k, v,
+                                              2e-2, args.reps)
+        log("  kernel vs plain, serve shape: " + json.dumps(out["attention"]))
+        del q, k, v, toks
+        with routings(tf) as rp, plain_attention(tf, fa):
+            plain_tokens, _ = serve_requests(params, cfg, prompts[:B], B, G,
+                                             dev)
+        out["greedy_agreement"] = float((plain_tokens == tokens[:B]).mean())
+        n_pre = cfg.n_layers * chunks          # the first prefill's groups
+        out["prefill_routings_differ_by_layer"] = [
+            sum(float((a != b).any(-1).float().mean())
+                for a, b in zip(rk.ids[i:i + chunks], rp.ids[i:i + chunks]))
+            / chunks for i in range(0, n_pre, chunks)]
+        log(f"  greedy tokens of batch 1 equal on the kernel and plain "
+            f"paths: {out['greedy_agreement']:.4f}; share of prefill "
+            "tokens routed differently, by layer: "
+            f"{out['prefill_routings_differ_by_layer']} (not gates)")
+        del rk, rp
+        out["moe_layer"] = moe_layer_vs_bound(
+            torch, tf, params, cfg, B, P, dev, args.seed + 42,
+            max(2, args.reps // 4))
+        log("  one MoE layer at the prefill shape: "
+            + json.dumps(out["moe_layer"]))
+        del params
+        torch.cuda.empty_cache()
+        if arch == MOE_ARCHS[0]:
+            out["gates"] = moe_gates(torch, fa, fa_kernel, tf, cfg, dev,
+                                     args)
+            log("  2-layer fp32 cut at capacity factor E/K (limit 1e-4; "
+                "routings compared first): " + json.dumps(out["gates"]))
+        res[arch] = out
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"moe path: {res['launches']} flash_attention launches; "
+        + json.dumps({"phase_s": res["phase_s"]}))
+    return res
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def phase_bert4rec(torch, dev, args, clock) -> dict:
+    """Phase 14, bert4rec serving at its full config (fp32 params drawn on
+    the card): serve_p99, `score_all_items` of 512 of phase 8's histories
+    over the whole table and their top 100; retrieval_cand, one history's
+    `score_candidates` against 1,000,000 candidate ids and their top 100.
+    Gates: 8 rows within 1e-4 of the CPU's; the candidates' scores within
+    1e-5 of the full scores at their columns; no NaN in a row with an
+    item. Times with CUDA events, the scoring pass against its bound."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import bert4rec as b4r
+    t_phase = time.perf_counter()
+    spec = get_arch("bert4rec")
+    cfg = spec.config
+    B = spec.shapes["serve_p99"].dims["batch"]
+    n_cand = spec.shapes["retrieval_cand"].dims["n_candidates"]
+    k, reps = 100, args.reps
+    log(f"phase 14 bert4rec serving: {cfg.n_items} items (table "
+        f"{cfg.padded_vocab} x {cfg.embed_dim} fp32), {cfg.n_blocks} blocks, "
+        f"{cfg.n_heads} heads, {cfg.seq_len} slots")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 50)
+    params = clock("bert4rec init_params (fp32, on the device)",
+                   b4r.init_params, gen, cfg, dev)
+    idx_np, _ = history_bags(args.bags, cfg.seq_len, cfg.n_items,
+                             args.seed + 31)
+    seq = torch.from_numpy(idx_np[:B]).to(dev)
+    cand = torch.from_numpy(np.random.default_rng(args.seed + 51)
+                            .permutation(n_cand) + 1).to(dev)
+    res = {"B": B, "n_candidates": n_cand, "k": k}
+    with torch.no_grad():
+        scores = b4r.score_all_items(params, seq, cfg)
+        top = torch.topk(scores, k, dim=-1)
+        cs = b4r.score_candidates(params, seq[:1], cand, cfg)
+        ctop = torch.topk(cs, k, dim=-1)
+        torch.cuda.synchronize()
+        check(scores.shape == (B, cfg.padded_vocab)
+              and cs.shape == (1, n_cand), "bert4rec scores: bad shapes")
+        has_item = (seq != 0).any(1)
+        check(int(has_item.sum()) == B
+              and not bool(scores[has_item].isnan().any()),
+              "bert4rec: NaN in a row with an item")
+        rows = torch.from_numpy(np.linspace(0, B - 1, 8).astype(np.int64))
+        want = b4r.score_all_items(to_device(params, "cpu"),
+                                   seq[rows.to(dev)].cpu(), cfg)
+        got = scores[rows.to(dev)].cpu()
+        res["rows_vs_cpu"] = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+              f"bert4rec rows on the card vs the CPU: {res['rows_vs_cpu']}")
+        res["top_vs_cpu"] = float((top.values[rows.to(dev)].cpu()
+                                   - torch.topk(want, k, -1).values).abs().max())
+        at_cand = scores[:1, cand]
+        res["candidates_vs_all"] = float((cs - at_cand).abs().max())
+        check(torch.allclose(cs, at_cand, rtol=1e-5, atol=1e-5),
+              f"score_candidates vs score_all_items: "
+              f"{res['candidates_vs_all']}")
+        res["candidate_top_in_all_top"] = len(
+            set(cand[ctop.indices[0]].tolist())
+            & set(top.indices[0].tolist())) / k
+        del want, got, at_cand
+
+        last = b4r.encode(params, seq, cfg)[:, -1]
+        table, bias = params["item_embed"], params["out_bias"]
+        res.update(
+            encode_ms=cuda_ms(torch, lambda: b4r.encode(params, seq, cfg),
+                              reps),
+            scoring_ms=cuda_ms(torch, lambda: torch.addmm(bias, last,
+                                                          table.T), reps),
+            topk_ms=cuda_ms(torch, lambda: torch.topk(scores, k, -1), reps),
+            serve_p99_ms=cuda_ms(torch, lambda: torch.topk(
+                b4r.score_all_items(params, seq, cfg), k, -1), reps),
+            retrieval_ms=cuda_ms(torch, lambda: torch.topk(
+                b4r.score_candidates(params, seq[:1], cand, cfg), k, -1),
+                reps),
+            candidates_topk_ms=cuda_ms(torch, lambda: torch.topk(cs, k, -1),
+                                       reps))
+        V, d = table.shape
+        res["scoring_bound"] = bound(V * d * 4 + V * 4 + B * d * 4
+                                     + B * V * 4, 2 * B * V * d,
+                                     FP32_OPS_PER_S)
+        res["retrieval_bound"] = bound(n_cand * (d * 4 + 4 + 8 + 4)
+                                       + cfg.seq_len * 4, 2 * n_cand * d,
+                                       FP32_OPS_PER_S)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params, scores, top, cs, ctop, last
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log("  bert4rec: " + json.dumps(res))
+    return res
+
+
 def build_kernels(common, kernels) -> None:
     """Build every kernel's library at once (one nvcc each, all started
     together), load them, then print ptxas's register and spill report."""
@@ -2713,6 +3085,13 @@ def main() -> None:
     del sampler
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB (phase 12), " + host_memory())
+    moe = phase_moe(torch, dev, args, clock, fa_kernel)
+    fa_shapes += [moe[a]["attention"] for a in MOE_ARCHS] \
+        + [moe[MOE_ARCHS[0]]["gates"]["attention"]]
+    rec = phase_bert4rec(torch, dev, args, clock)
+    log(f"peak device memory {max(moe[a]['peak_gib'] for a in MOE_ARCHS):.2f}"
+        f" GiB (phase 13), {rec['peak_gib']:.2f} GiB (phase 14), "
+        + host_memory())
 
     kernels = [
         kernel_entry("frontier_expand",
@@ -2749,6 +3128,8 @@ def main() -> None:
         if entry["name"] == "psw_spmm":
             entry["gnn_path_launches"] = gnn["launches"]
             entry["equiformer_path_launches"] = eqv["launches"]
+        if entry["name"] == "flash_attention":
+            entry["moe_path_launches"] = moe["launches"]
     log("phase seconds: " + json.dumps(clock.seconds))
     log(json.dumps({"kernels": kernels}))
 

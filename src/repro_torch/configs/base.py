@@ -1,7 +1,8 @@
 """Arch registry (port of the reference `repro/configs/base.py`): every
 architecture id of the reference is listed, and `get_arch` returns the
-`ArchSpec` of a ported one. An architecture whose model is not ported yet
-raises `NotImplementedError` naming its ROADMAP slice."""
+`ArchSpec` of a ported one (all ten are). An architecture whose model is
+not ported yet would be listed in `_NOT_PORTED` and raise
+`NotImplementedError` naming its ROADMAP slice."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,11 +32,7 @@ _MODULES = {
 }
 
 # architectures whose model is not ported yet, and where that work stands
-_NOT_PORTED = {
-    "phi3.5-moe-42b-a6.6b": "ROADMAP queue 1, slice 8b: MoE models",
-    "qwen3-moe-235b-a22b": "ROADMAP queue 1, slice 8b: MoE models",
-    "bert4rec": "ROADMAP queue 1, slice 8b: bert4rec",
-}
+_NOT_PORTED: Dict[str, str] = {}
 
 
 @dataclasses.dataclass

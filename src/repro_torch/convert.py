@@ -26,7 +26,9 @@ A KV cache travels the same way (`k`, `v`; `kv_cache_from_arrays`).
 A GNN's params (`gnn_params_to_arrays` / `gnn_params_from_arrays`: GIN,
 PNA, MeshGraphNet, EquiformerV2) are nested lists and dicts; a list item's
 key is its index: `encoder.0.w`, `layers.3.mlp.1.b`, `layers.3.eps`,
-`heads.5.0.w`, `layers.11.so2.m2_i`.
+`heads.5.0.w`, `layers.11.so2.m2_i`. A bert4rec's params
+(`bert4rec_params_to_arrays` / `bert4rec_params_from_arrays`) likewise:
+`item_embed`, `blocks.1.wq`, `out_bias`, ...
 bfloat16 leaves cross as float32, which holds them exactly."""
 from __future__ import annotations
 
@@ -40,10 +42,12 @@ import torch
 from .core.pal import EdgePartition, GraphPAL, IntervalMap
 from .core.psw import DeviceGraph, segment_ptr
 from .kernels.frontier_expand.ops import FrontierPlan, plan_to_device
+from .models import bert4rec
 from .models.gnn import equiformer_v2, gin, meshgraphnet, pna
-from .models.transformer import MOE_TODO, TransformerConfig, _layer_shapes
+from .models.transformer import TransformerConfig, _layer_shapes
 
-__all__ = ["device_graph_from_arrays", "device_graph_to_arrays",
+__all__ = ["bert4rec_params_from_arrays", "bert4rec_params_to_arrays",
+           "device_graph_from_arrays", "device_graph_to_arrays",
            "gnn_params_from_arrays", "gnn_params_to_arrays",
            "kv_cache_from_arrays", "kv_cache_to_arrays", "pal_from_arrays",
            "pal_to_arrays", "plan_from_arrays", "plan_to_arrays",
@@ -243,9 +247,8 @@ def transformer_params_from_arrays(d: Dict[str, np.ndarray],
                                    cfg: TransformerConfig, device):
     """Rebuild a port params tree in `cfg.param_dtype` on `device` from
     `transformer_params_to_arrays` output; keys and shapes must be the
-    config's."""
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_TODO)
+    config's (a MoE config's `layers.mlp` holds `router`, `w_gate`, `w_up`
+    and `w_down` with their expert axis)."""
     return _tree_from_arrays(d, _param_shapes(cfg), cfg.param_dtype, device)
 
 
@@ -289,6 +292,12 @@ def gnn_params_from_arrays(d: Dict[str, np.ndarray], template_or_cfg,
                             f"{type(template_or_cfg).__name__}")
         template = model.init_params(torch.Generator(), template_or_cfg,
                                      device="meta")
+    return _tree_from_template(d, template, device)
+
+
+def _tree_from_template(d: Dict[str, np.ndarray], template, device):
+    """A params tree of `template`'s layout, shapes and dtypes on `device`,
+    its leaves from `d` (dotted keys, a list item's key its index)."""
     leaves = dict(_flatten(template))
     if set(d) != set(leaves):
         raise ValueError(f"keys differ from the template's: missing "
@@ -309,3 +318,15 @@ def gnn_params_from_arrays(d: Dict[str, np.ndarray], template_or_cfg,
         return torch.from_numpy(np.array(a)).to(device=dev, dtype=node.dtype)
 
     return build(template, "")
+
+
+bert4rec_params_to_arrays = gnn_params_to_arrays
+
+
+def bert4rec_params_from_arrays(d: Dict[str, np.ndarray],
+                                cfg: bert4rec.Bert4RecConfig, device):
+    """Rebuild a port bert4rec params tree on `device` from
+    `bert4rec_params_to_arrays` output; keys and shapes must be those
+    `bert4rec.init_params` gives `cfg`."""
+    template = bert4rec.init_params(torch.Generator(), cfg, device="meta")
+    return _tree_from_template(d, template, device)

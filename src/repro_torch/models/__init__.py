@@ -1,4 +1,7 @@
-"""Models (port of the reference `repro/models/`). Ported so far: the dense
-decoder-only transformer and the GIN, PNA and MeshGraphNet GNNs;
-EquiformerV2 is ROADMAP slice 6b's, bert4rec and MoE slice 8b's."""
-from . import gnn, transformer
+"""Models (port of the reference `repro/models/`): the decoder-only
+transformer with its dense and MoE layers, bert4rec, and the GIN, PNA,
+MeshGraphNet and EquiformerV2 GNNs, each to serve (forward, prefill and
+decode, scoring). Training the transformer and bert4rec (`loss_fn`, the
+gradient of `masked_lm_loss`, flash_attention's backward in training) is
+ROADMAP slice 8b-ii's."""
+from . import bert4rec, gnn, transformer

@@ -1,0 +1,185 @@
+"""BERT4Rec (Sun et al., arXiv:1904.06690), serving half (port of the
+reference `repro/models/bert4rec.py`): a bidirectional transformer over
+item interaction sequences, scored against the whole item table or a
+candidate set.
+
+Plain torch throughout, as the reference is plain jnp: its attention is an
+einsum with a key-padding mask (no Pallas kernel), and its lookups are
+per-slot gathers of the item table (`table[item_seq]`, candidate rows), not
+pooled bags, so no hand-written kernel is on this path. The reference's
+sharding hints (`constrain`) do nothing on one device and are left out;
+`param_logical_axes` is ROADMAP slice 7's. Ids index the table directly, so
+an id outside it raises (the reference's `jnp.take` fills such rows).
+
+Behaviour kept from the reference: the tanh GELU, a layer norm over the
+population variance with eps 1e-6 and no bias, a sequence that is all
+padding gives NaN (every key is masked), and `score_all_items` scores the
+padding row, the [MASK] row and the padded vocab rows like any other.
+`masked_lm_loss` gives the loss's value; its gradient is the training
+path's (ROADMAP slice 8b-ii)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .gnn.common import param_device
+
+__all__ = ["Bert4RecConfig", "encode", "init_params", "masked_lm_loss",
+           "score_all_items", "score_candidates"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Bert4RecConfig:
+    n_items: int = 1_000_000
+    embed_dim: int = 64
+    n_blocks: int = 2
+    n_heads: int = 2
+    seq_len: int = 200
+    d_ff: Optional[int] = None          # default 4*d
+    dropout: float = 0.0                # kept for config parity (eval mode)
+    compute_dtype: object = torch.float32
+
+    @property
+    def vocab(self) -> int:
+        """Item ids are 1..n_items; 0 is padding, n_items + 1 [MASK]."""
+        return self.n_items + 2
+
+    @property
+    def padded_vocab(self) -> int:
+        """Table rows rounded up to a multiple of 256, as the reference
+        pads them."""
+        return -(-self.vocab // 256) * 256
+
+    @property
+    def ff(self) -> int:
+        return self.d_ff or 4 * self.embed_dim
+
+
+def init_params(gen: Optional[torch.Generator], cfg: Bert4RecConfig,
+                device=None):
+    """fp32 params drawn on `device` (default: the GPU) from `gen`, with the
+    reference's scales: projections normal·d^-0.5, w2 normal·ff^-0.5, the
+    item and position tables normal·0.02, norm scales 1, biases 0. A torch
+    generator gives other numbers than a jax key: tests carry the
+    reference's params across with `convert.bert4rec_params_from_arrays`."""
+    gen, dev = param_device(gen, device)
+    d, ff = cfg.embed_dim, cfg.ff
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    def ones(n):
+        return torch.ones((n,), device=dev)
+
+    def zeros(n):
+        return torch.zeros((n,), device=dev)
+
+    blocks = [{"wq": normal((d, d), d ** -0.5),
+               "wk": normal((d, d), d ** -0.5),
+               "wv": normal((d, d), d ** -0.5),
+               "wo": normal((d, d), d ** -0.5),
+               "w1": normal((d, ff), d ** -0.5),
+               "w2": normal((ff, d), ff ** -0.5),
+               "ln1": ones(d), "ln2": ones(d), "b1": zeros(ff), "b2": zeros(d)}
+              for _ in range(cfg.n_blocks)]
+    return {"item_embed": normal((cfg.padded_vocab, d), 0.02),
+            "pos_embed": normal((cfg.seq_len, d), 0.02),
+            "blocks": blocks,
+            "out_bias": zeros(cfg.padded_vocab),
+            "final_ln": ones(d)}
+
+
+def _ln(x, scale, eps: float = 1e-6):
+    m = x.mean(-1, keepdim=True)
+    v = x.var(-1, keepdim=True, unbiased=False)
+    return (x - m) * torch.rsqrt(v + eps) * scale
+
+
+def encode(params, item_seq: torch.Tensor, cfg: Bert4RecConfig):
+    """item_seq: (B, S) int (0 = pad). Returns (B, S, d) representations:
+    bidirectional attention with a key-padding mask (no causal mask, no
+    decode step)."""
+    B, S = item_seq.shape
+    d, H = cfg.embed_dim, cfg.n_heads
+    dh = d // H
+    cdt = cfg.compute_dtype
+    pad = item_seq == 0
+
+    x = F.embedding(item_seq, params["item_embed"]).to(cdt)
+    x = x + params["pos_embed"][None, :S].to(cdt)
+    for blk in params["blocks"]:
+        h = _ln(x, blk["ln1"].to(cdt))
+        q = (h @ blk["wq"].to(cdt)).reshape(B, S, H, dh)
+        k = (h @ blk["wk"].to(cdt)).reshape(B, S, H, dh)
+        v = (h @ blk["wv"].to(cdt)).reshape(B, S, H, dh)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * dh ** -0.5
+        s = s.masked_fill(pad[:, None, None, :], -torch.inf)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, S, d)
+        x = x + o @ blk["wo"].to(cdt)
+        h = _ln(x, blk["ln2"].to(cdt))
+        f = F.gelu(h @ blk["w1"].to(cdt) + blk["b1"].to(cdt),
+                   approximate="tanh")
+        x = x + f @ blk["w2"].to(cdt) + blk["b2"].to(cdt)
+    return _ln(x, params["final_ln"].to(cdt))
+
+
+def masked_lm_loss(params, batch, cfg: Bert4RecConfig,
+                   vocab_chunk: int = 16384):
+    """Masked-item cross-entropy at the masked positions only, with a
+    streaming logsumexp over `vocab_chunk` table rows at a time, so the
+    (B, S, vocab) logits are never made. Ids at or above `cfg.vocab` (the
+    padded rows) score -inf.
+
+    batch: item_seq (B, S) with [MASK] tokens placed; masked_positions
+    (B, M) slot indices (0-padded); labels (B, M) the true items at those
+    slots, 0 = unused slot."""
+    reps = encode(params, batch["item_seq"], cfg)          # (B, S, d)
+    pos = batch["masked_positions"].long()
+    rows = torch.take_along_dim(reps, pos[..., None], dim=1)  # (B, M, d)
+    flat = rows.reshape(-1, rows.shape[-1]).float()        # (R, d)
+    lab = batch["labels"].reshape(-1).long()               # (R,)
+    valid = lab > 0
+
+    table = params["item_embed"].float()
+    bias = params["out_bias"].float()
+    gold = (flat * table[lab]).sum(-1) + bias[lab]
+
+    # the reference zero-pads the table to a multiple of vocab_chunk; those
+    # rows score -inf and add nothing, so the last chunk is cut short here
+    m = torch.full((flat.shape[0],), -torch.inf, device=flat.device)
+    s = torch.zeros((flat.shape[0],), device=flat.device)
+    for start in range(0, cfg.padded_vocab, vocab_chunk):
+        emb = table[start:start + vocab_chunk]
+        sc = flat @ emb.T + bias[start:start + vocab_chunk][None, :]
+        ids = start + torch.arange(emb.shape[0], device=flat.device)
+        sc = torch.where(ids[None, :] < cfg.vocab, sc, -torch.inf)
+        m_new = torch.maximum(m, sc.max(-1).values)
+        s = s * torch.exp(m - m_new) + torch.exp(sc - m_new[:, None]).sum(-1)
+        m = m_new
+    logz = m + torch.log(torch.clamp_min(s, 1e-30))
+    ce = (logz - gold) * valid
+    return ce.sum() / torch.clamp_min(valid.sum(), 1)
+
+
+def score_all_items(params, item_seq: torch.Tensor, cfg: Bert4RecConfig):
+    """Next-item scores over the full table from the last position:
+    (B, padded_vocab), the bias added in the product's epilogue."""
+    last = encode(params, item_seq, cfg)[:, -1]
+    table = params["item_embed"].to(last.dtype)
+    return torch.addmm(params["out_bias"].to(last.dtype), last, table.T)
+
+
+def score_candidates(params, item_seq: torch.Tensor,
+                     candidate_ids: torch.Tensor, cfg: Bert4RecConfig):
+    """retrieval_cand: score the queries against a candidate set, one
+    gather of table rows and one product. item_seq: (B, S);
+    candidate_ids: (n_cand,). Returns (B, n_cand)."""
+    last = encode(params, item_seq, cfg)[:, -1]            # (B, d)
+    ids = candidate_ids.long()
+    cand = params["item_embed"][ids].to(last.dtype)        # (n_cand, d)
+    bias = params["out_bias"][ids].to(last.dtype)
+    return torch.addmm(bias, last, cand.T)

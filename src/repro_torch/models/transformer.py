@@ -1,5 +1,6 @@
-"""Decoder-only transformer, dense half (port of the reference
-`repro/models/transformer.py`): GQA/MQA, qk-norm, RoPE, KV-cache decode.
+"""Decoder-only transformer (port of the reference
+`repro/models/transformer.py`): dense and MoE layers, GQA/MQA, qk-norm,
+RoPE, KV-cache decode.
 
 The reference's functional API and parameter layout are kept: params are a
 dict of tensors whose layer leaves carry a leading `n_layers` axis, so
@@ -20,8 +21,24 @@ and the attention scores in fp32, each weight cast to the compute dtype at
 its product. `cast_params` casts the whole tree once, which gives the same
 values, because each cast is deterministic.
 
-MoE (`cfg.moe`) is ROADMAP slice 8b's work, and `loss_fn` waits
-for the training path: both raise `NotImplementedError`."""
+MoE (`moe_mlp`, `_moe_core`) is the reference's sort-based GShard dispatch
+on one device (no mesh: one token group, dp = 1). The router runs in
+`router_dtype` (fp32, TF32 off as torch's matmul default), top-k over its
+softmax, a stable argsort of the chosen experts, each token's position in
+its expert's run by a left `searchsorted`; pairs past the capacity go to a
+spare slot that is sliced off, and empty slots gather token 0 with gate 0,
+so the expert FFN runs on x[0] there and its output is multiplied by 0.
+The expert products are batched matmuls in the compute dtype, outside any
+hand-written kernel as in the reference. The combine is a token-major sum:
+each token adds its own slots in ascending slot order, starting from 0, and
+token 0 adds the empty slots' zero-gated rows too; that is the order of the
+reference's `segment_sum` on its CPU, and it is deterministic on the card,
+where `index_add_` would add with atomics in an order that varies run to
+run. Sequences longer than 2,048 tokens, and a multiple of it, are routed
+in chunks of 2,048, each with its own capacity, as the reference does.
+
+`loss_fn` waits for the training path (ROADMAP slice 8b-ii) and raises
+`NotImplementedError`."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,19 +58,20 @@ __all__ = [
     "cast_params",
     "decode_step",
     "dense_mlp",
+    "expert_ffn",
     "forward",
     "init_cache",
     "init_params",
     "layer_fn",
     "loss_fn",
+    "moe_capacity",
+    "moe_mlp",
     "prefill",
     "qkv",
     "rms_norm",
     "rope",
+    "route_tokens",
 ]
-
-MOE_TODO = ("MoE layers are not ported yet (ROADMAP queue 1, slice 8b: "
-            "MoE)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,11 +136,6 @@ class TransformerConfig:
         d = self.d_model
         dense = self.n_params - self.n_layers * self.moe.n_experts * 3 * d * self.moe.d_ff_expert
         return dense + self.n_layers * self.moe.top_k * 3 * d * self.moe.d_ff_expert
-
-
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_TODO)
 
 
 # ---------------------------------------------------------------------------
@@ -215,18 +228,119 @@ def dense_mlp(params, x, cfg: TransformerConfig):
     return (F.silu(g) * u) @ params["w_down"].to(cdt)
 
 
+MOE_SEQ_CHUNK = 2048
+
+
+def moe_mlp(params, x, cfg: TransformerConfig):
+    """Sort-based capacity MoE dispatch (GShard). x: (B, S, d) in the
+    compute dtype. Returns (out (B, S, d), aux: the balance loss, fp32).
+
+    A sequence longer than 2,048 tokens and a multiple of it is routed in
+    chunks of 2,048 (all B rows of a chunk together, each chunk with its own
+    capacity), and aux is the mean over the chunks, as the reference's
+    scan does."""
+    B, S, d = x.shape
+    if S > MOE_SEQ_CHUNK and S % MOE_SEQ_CHUNK == 0:
+        outs, auxes = [], []
+        for c in range(0, S, MOE_SEQ_CHUNK):
+            o, a = _moe_core(params, x[:, c:c + MOE_SEQ_CHUNK], cfg)
+            outs.append(o)
+            auxes.append(a)
+        return torch.cat(outs, 1), torch.stack(auxes).mean()
+    return _moe_core(params, x, cfg)
+
+
+def moe_capacity(mo: MoEConfig, tokens: int) -> int:
+    """Slots per expert for `tokens` routed together: the reference's
+    Python truncation of cf·t·K/E + 0.5, then at least 8 and a multiple
+    of 8."""
+    cap = int(mo.capacity_factor * tokens * mo.top_k / mo.n_experts + 0.5)
+    return max(8, -(-cap // 8) * 8)
+
+
+def route_tokens(router: torch.Tensor, xg: torch.Tensor, mo: MoEConfig):
+    """The router: xg (t, d) -> (probs (t, E), gates (t, K) renormalised,
+    idx (t, K) the experts, best first), all in `mo.router_dtype`."""
+    rdt = mo.router_dtype
+    probs = torch.softmax(xg.to(rdt) @ router.to(rdt), dim=-1)
+    gates, idx = torch.topk(probs, mo.top_k, dim=-1)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    return probs, gates, idx
+
+
+def expert_ffn(params, ein: torch.Tensor, cdt) -> torch.Tensor:
+    """Every expert's SwiGLU FFN on its slots: ein (E, cap, d) -> (E, cap,
+    d), each weight cast to `cdt` at its product."""
+    g = torch.bmm(ein, params["w_gate"].to(cdt))
+    u = torch.bmm(ein, params["w_up"].to(cdt))
+    return torch.bmm(F.silu(g) * u, params["w_down"].to(cdt))
+
+
+def _moe_core(params, x, cfg: TransformerConfig):
+    """One token group (the reference's dp = 1): route, dispatch into
+    (E, cap) slots, the expert FFN, combine."""
+    mo = cfg.moe
+    B, S, d = x.shape
+    t, E, K = B * S, mo.n_experts, mo.top_k
+    cdt = cfg.compute_dtype
+    dev = x.device
+    cap = moe_capacity(mo, t)
+    xg = x.reshape(t, d)
+
+    probs, gates, idx = route_tokens(params["router"], xg, mo)
+    expert_of = idx.reshape(-1)                              # (t·K,)
+    order = torch.argsort(expert_of, stable=True)
+    sorted_e = expert_of[order]
+    seg_start = torch.searchsorted(sorted_e, torch.arange(E + 1, device=dev))
+    counts = seg_start[1:] - seg_start[:-1]
+    ce = counts.to(probs.dtype) / (t * K)
+    aux = mo.aux_coef * E * torch.sum(probs.mean(0) * ce)
+
+    pos_in_e = torch.arange(t * K, device=dev) - seg_start[sorted_e]
+    ok = pos_in_e < cap
+    slot = torch.where(ok, sorted_e * cap + pos_in_e, E * cap)
+    # invert slot -> token; every dropped pair lands on the spare slot E·cap
+    tfs = torch.zeros(E * cap + 1, dtype=torch.long, device=dev)
+    tfs[slot] = order // K
+    tfs = tfs[:E * cap]
+
+    ein = xg.to(cdt)[tfs].reshape(E, cap, d)
+    eout = expert_ffn(params, ein, cdt).reshape(E * cap, d)
+
+    # combine: each token's slots in ascending slot order, each row times
+    # its pair's gate; a dropped pair (slot E·cap, which sorts last) adds 0
+    slots = torch.empty(t * K, dtype=torch.long, device=dev)
+    slots[order] = slot
+    slots, by_slot = slots.reshape(t, K).sort(dim=1)
+    pair_gates = gates.to(cdt).gather(1, by_slot)
+    dropped = slots == E * cap
+    slots = slots.clamp(max=E * cap - 1)
+    out = torch.zeros((t, d), dtype=cdt, device=dev)
+    for j in range(K):
+        rows = eout[slots[:, j]] * pair_gates[:, j, None]
+        out = out + rows.masked_fill_(dropped[:, j, None], 0)
+    # the empty slots' zero-gated rows belong to token 0: 0, or NaN when
+    # an expert with an empty slot (its last one is then empty) gave a
+    # non-finite FFN of x[0]
+    last = eout.reshape(E, cap, d)[:, -1] * 0
+    out[0] = out[0] + torch.where((counts < cap)[:, None], last, 0).sum(0)
+    return out.reshape(B, S, d), aux
+
+
 def layer_fn(params, x, cfg: TransformerConfig, positions, kv_cache=None,
              cache_pos: Optional[int] = None):
     """One layer; returns (x, new_kv, aux) as the reference does (aux, the
     MoE balance loss, is 0.0 for a dense layer)."""
-    _dense_only(cfg)
     cdt = cfg.compute_dtype
     h = rms_norm(x, params["ln1"].to(cdt), cfg.norm_eps)
     a, new_kv = attention(params["attn"], h, cfg, positions, kv_cache,
                           cache_pos)
     x = x + a
     h = rms_norm(x, params["ln2"].to(cdt), cfg.norm_eps)
-    return x + dense_mlp(params["mlp"], h, cfg), new_kv, 0.0
+    if cfg.moe is None:
+        return x + dense_mlp(params["mlp"], h, cfg), new_kv, 0.0
+    m, aux = moe_mlp(params["mlp"], h, cfg)
+    return x + m, new_kv, aux
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +373,6 @@ def init_params(cfg: TransformerConfig,
     scales: matrices normal·fan_in^-0.5, norm scales 1, embed normal·0.02,
     lm_head normal·d^-0.5. A torch generator gives other numbers than a
     jax key: tests carry the reference's params across with `convert`."""
-    _dense_only(cfg)
     dev = _resolve_device(device, "the model")
     if generator is None:
         generator = torch.Generator(device=dev)
@@ -316,22 +429,23 @@ def _embed(params, tokens, cfg: TransformerConfig):
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig):
     """tokens: (B, S) -> (logits (B, S, vocab) in compute dtype, aux): aux
     is the reference's summed MoE loss, a float32 0 for dense layers."""
-    _dense_only(cfg)
     B, S = tokens.shape
     cdt = cfg.compute_dtype
     x = _embed(params, tokens, cfg)
     positions = torch.arange(S, device=x.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, _, _ = layer_fn(_layer(params["layers"], i), x, cfg, positions)
+        x, _, a = layer_fn(_layer(params["layers"], i), x, cfg, positions)
+        aux = aux + a
     x = rms_norm(x, params["final_norm"].to(cdt), cfg.norm_eps)
     logits = torch.einsum("bsd,vd->bsv", x, params["lm_head"].to(cdt))
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(params, batch, cfg: TransformerConfig):
     raise NotImplementedError("the training path (loss_fn and "
                               "flash_attention's backward in training) is "
-                              "not ported yet (ROADMAP queue 1, slice 8b)")
+                              "not ported yet (ROADMAP queue 1, slice 8b-ii)")
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
@@ -346,7 +460,6 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
             max_seq: int, cache_dtype=torch.bfloat16
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run the prompt, return (logits_last (B, vocab), cache)."""
-    _dense_only(cfg)
     B, S = tokens.shape
     cdt = cfg.compute_dtype
     cache = init_cache(cfg, B, max_seq, dtype=cache_dtype,
@@ -368,7 +481,6 @@ def decode_step(params, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
                 pos: int, cfg: TransformerConfig):
     """One decode step. tokens: (B, 1) int; pos: the cache position.
     Returns (logits (B, vocab), cache), the cache updated in place."""
-    _dense_only(cfg)
     B, S = tokens.shape
     cdt = cfg.compute_dtype
     x = _embed(params, tokens, cfg)

@@ -211,10 +211,10 @@ def test_arch_specs_match_reference(arch):
 
 def test_equiformer_resolves_in_the_port():
     """EquiformerV2 is ported (slice 6b): its spec is the reference's (the
-    parametrized spec test), and the registry refuses only slice 8b's."""
+    parametrized spec test), and the registry refuses no architecture."""
     assert configs.get_arch("equiformer-v2").config == eq.EquiformerV2Config()
     from repro_torch.configs.base import _NOT_PORTED
-    assert all("slice 8b" in why for why in _NOT_PORTED.values())
+    assert _NOT_PORTED == {}
 
 
 @pytest.mark.parametrize("arch", ["gin-tu", "pna", "meshgraphnet",

@@ -43,7 +43,9 @@ def test_every_module_imports_without_jax_or_repro():
                  "configs.gnn_common", "configs.gin_tu", "configs.pna",
                  "configs.meshgraphnet", "graph.psw_ops",
                  "models.gnn.wigner", "models.gnn.equiformer_v2",
-                 "configs.equiformer_v2"):
+                 "configs.equiformer_v2", "models.bert4rec",
+                 "configs.bert4rec", "configs.phi35_moe",
+                 "configs.qwen3_moe"):
         assert "repro_torch." + name in mods, name
     code = (
         "import sys\n"

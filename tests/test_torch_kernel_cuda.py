@@ -18,7 +18,8 @@ the kernel rounds P to bf16 for P·V, on wgmma + TMA); embedding_bag is bitwise 
 w·row in slot order, rounded twice in fp32; where a row holds inf or NaN, the NaN
 columns are compared as a mask, since NaN != NaN). A small reopened on-disk
 `GraphDB`'s dense hops and snapshot on the card are bitwise equal to
-`device="cpu"`."""
+`device="cpu"`. A MoE smoke-width prefill (through the flash_attention
+kernel) and bert4rec's scores on the card are within 1e-4 of the CPU's."""
 import numpy as np
 import pytest
 import torch
@@ -859,3 +860,57 @@ def test_equiformer_sampled_batch_on_the_card_matches_plain(cuda,
     assert tuple(got.shape) == (sub.nodes.shape[0], 41)
     assert torch.isfinite(got).all()
     assert torch.equal(got, plain)
+
+
+def test_moe_prefill_on_the_card_matches_cpu(cuda):
+    """qwen3-moe's smoke config (fp32, 8 experts, top-2) prefilled on the
+    card, its attention through the flash_attention kernel (one launch a
+    layer) and its MoE dispatch on the card, against the same prefill on
+    the CPU: last-token logits and the caches within 1e-4."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    cfg = configs.get_arch("qwen3-moe-235b-a22b").smoke_config
+    params = tf.init_params(cfg, torch.Generator().manual_seed(27), "cpu")
+    on_card = tf._map(params, lambda t: t.to(cuda))
+    toks = torch.from_numpy(np.random.default_rng(27).integers(
+        0, cfg.vocab_size, (2, 256)))
+    before = fa.ops.launches
+    with torch.no_grad():
+        got, cache = tf.prefill(on_card, toks.to(cuda), cfg, 264,
+                                cache_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert fa.ops.launches == before + cfg.n_layers
+        want, cache_cpu = tf.prefill(params, toks, cfg, 264,
+                                     cache_dtype=torch.float32)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for name in ("k", "v"):
+        torch.testing.assert_close(cache[name].cpu(), cache_cpu[name],
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_bert4rec_scores_on_the_card_match_cpu(cuda):
+    """bert4rec at its full width (d 64, 2 blocks, 2 heads, 200 slots) over
+    a 50,000-item table: `score_all_items` and `score_candidates` of 16
+    left-padded histories on the card within 1e-4 of the CPU's."""
+    from repro_torch.models import bert4rec
+    cfg = bert4rec.Bert4RecConfig(n_items=50_000)
+    params = bert4rec.init_params(torch.Generator().manual_seed(28), cfg,
+                                  "cpu")
+    on_card = {k: [{n: t.to(cuda) for n, t in b.items()} for b in v]
+               if k == "blocks" else v.to(cuda) for k, v in params.items()}
+    rng = np.random.default_rng(28)
+    lens = rng.integers(1, cfg.seq_len + 1, 16)
+    seq = rng.integers(1, cfg.n_items + 1, (16, cfg.seq_len))
+    seq[np.arange(cfg.seq_len)[None, :] < (cfg.seq_len - lens)[:, None]] = 0
+    seq = torch.from_numpy(seq)
+    cand = torch.from_numpy(rng.choice(cfg.n_items, 1000, replace=False) + 1)
+    with torch.no_grad():
+        got = bert4rec.score_all_items(on_card, seq.to(cuda), cfg)
+        got_c = bert4rec.score_candidates(on_card, seq.to(cuda),
+                                          cand.to(cuda), cfg)
+        want = bert4rec.score_all_items(params, seq, cfg)
+    assert got.shape == (16, cfg.padded_vocab) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_c.cpu(), want[:, cand], rtol=1e-4,
+                               atol=1e-4)
