@@ -13,8 +13,8 @@ graph store read by multi-hop queries and analysed by PSW. Phase 9, the
 disk tier, runs first, right after the build, while the process's peak RSS
 is still its baseline; phases 0-8 follow, then phase 10, the service and
 shard tiers, phase 11, GNN serving on sampled minibatches, phase 12,
-EquiformerV2 serving from phase 11's sampler, phase 13, MoE serving, and
-phase 14, bert4rec serving, runs last:
+EquiformerV2 serving from phase 11's sampler, phase 13, MoE serving,
+phase 14, bert4rec serving, and phase 15, training, runs last:
 
   9. the disk tier at benchmarks/bench_disk.py's scale-1.0 configuration
      (a 96 MB data budget; --disk-budget-mb sets it, and with it the edge
@@ -194,6 +194,33 @@ phase 14, bert4rec serving, runs last:
      scores within 1e-5 of the full scores at their columns, no NaN in a
      row with an item. serve_bulk (B = 262,144) needs a chunked top-k
      serve step and is left for later.
+ 15. training (`phase_train`), each model freed before the next: (a)
+     granite-3-2b at its full config (fp32 master params and AdamW state,
+     bf16 compute, remat "full"), `launch/train.py::train_step` for 4
+     steps on one TokenStream batch of 2 x 4,096 tokens (train_4k's
+     256 x 4,096 cut to the batch); gates: finite losses falling from step
+     0 to step 3, 80 flash_attention launches a step (forward and
+     recompute), and on a 2-layer fp32 cut at full width the gradient
+     with the kernel forward within 1e-4 of the plain forward's; logged:
+     step s, tokens/s, model FLOP/s (6 N tokens / step s) against 989
+     TFLOP/s, peak GiB, the attention backward's ms a layer against
+     SDPA's backward; (b) phi3.5-moe at full width cut to 2 of 32 layers
+     (fp32 params and AdamW state), 2 steps on 1 x 4,096 tokens; gates:
+     finite losses, the balance loss above 0, the router's gradient not 0;
+     (c) bert4rec at its full config, one of train_batch's 8 microbatches
+     (8,192 of 65,536 sequences, 40 masked slots, vocab chunks of 8,192),
+     2 steps; gates: finite losses, the item table's gradient not 0; (d)
+     gin-tu on phase 11's first batch, 3 AdamW steps of the node
+     cross-entropy; gates: the first gradient on the card within 1e-4 of
+     the CPU's, 10 psw_spmm launches a step (the forward's and the
+     transpose's); (e) EquiformerV2 at phase 12's config cut to 4 of 12
+     layers on phase 12's first batch, one step; gates: a finite gradient
+     norm, 3 psw_spmm launches a layer and chunk (forward, recompute,
+     transpose); (f) psw_spmm's transpose (`transpose_rows`) at the GIN
+     shape and at EquiformerV2's scatter shape (F = 6,272): equal to
+     `prepare_rows` of the swapped edges, the kernel within rowwise 1e-5
+     of its plain version, with times, the bytes bound and the
+     `torch.sparse.mm` yardstick.
 
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 1-2 for frontier_expand, phase 6's aggregation calls for
@@ -209,8 +236,10 @@ in every GIN forward of its 4 batches, which must be 5 a forward) on the
 every EquiformerV2 forward on the card, n_layers x edge_chunks each) on
 the `equiformer path:` line and as `equiformer_path_launches`; phase 13's
 (flash_attention in both MoE models' `serve_requests`, n_layers a
-prefill) on the `moe path:` line and as `moe_path_launches`. Any failed
-check exits non-zero. The
+prefill) on the `moe path:` line and as `moe_path_launches`; phase 15's
+(flash_attention in (a) and (b), psw_spmm in (d) and (e), each zeroed
+before its own steps) on the `train path:` line and as
+`train_path_launches`. Any failed check exits non-zero. The
 second-to-last line is the card's name and power limit from nvidia-smi;
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2268,13 +2297,15 @@ def phase_gnn(torch, core, ps, ps_kernel, dev, args, clock) -> dict:
             log(f"  batch {b}: " + json.dumps(row))
             if first is None:
                 first = (sub.n_seeds, batch)
+                res_sub = sub
             del nodes
     launches = ps.ops.launches                 # ...ends here
     n_fwd, n_layers = gin_forwards[0], cfgs["gin-tu"].n_layers
     check(n_fwd > 0 and launches == n_layers * n_fwd,
           f"11: {launches} psw_spmm launches for {n_fwd} GIN forwards of "
           f"{n_layers} layers")
-    res = {"launches": launches, "gin_forwards": n_fwd, "batches": rows}
+    res = {"launches": launches, "gin_forwards": n_fwd, "batches": rows,
+           "sub": res_sub}                    # phase 15 trains on it
 
     # where a forward's time goes: the device's busy share of batch 0's
     # forward time, from torch.profiler
@@ -2432,13 +2463,8 @@ def phase_equiformer(torch, ps, ps_kernel, sampler, n: int, cfg, dev, args,
         f"{cfg.edge_chunks} edge chunks, {cfg.gather_mode}; {B} seeds a "
         f"batch at {fanouts}, padded to {MB_NODES} nodes and {MB_EDGES} "
         f"edges ({K} x {cfg.d_hidden} irreps an edge)")
-    rng = np.random.default_rng(args.seed + 50)
-    u = rng.standard_normal((n, 3))
-    pos_np = u / np.linalg.norm(u, axis=1, keepdims=True) \
-        * rng.random((n, 1)) ** (1 / 3)
-    pos_table = torch.from_numpy(pos_np.astype(np.float32)).to(dev)
-    species_table = torch.arange(n, device=dev) * 2654435761 % 2**32 % 128
-    del u, pos_np
+    pos_table, species_table, rng = equiformer_inputs(torch, n,
+                                                      args.seed + 50, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 51)
     params = eq.init_params(gen, cfg, dev)
@@ -2593,7 +2619,8 @@ def phase_equiformer(torch, ps, ps_kernel, sampler, n: int, cfg, dev, args,
     torch.cuda.empty_cache()
     res = {"launches": launches, "forwards": n_fwd, "batches": rows,
            "profile": prof, "rotation": rot, "logit_errs": errs,
-           "psw_spmm": spmm, "phase_s": time.perf_counter() - t_phase}
+           "psw_spmm": spmm, "phase_s": time.perf_counter() - t_phase,
+           "sub": sub}                         # phase 15 trains on it
     log(f"equiformer path: {launches} psw_spmm launches ({n_fwd} forwards "
         f"on the card); " + json.dumps({"phase_s": res["phase_s"]}))
     return res
@@ -2936,6 +2963,525 @@ def phase_bert4rec(torch, dev, args, clock) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training on the card
+# ---------------------------------------------------------------------------
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 2, 4096   # train_4k's 256
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 2       # of phi3.5-moe's 32 layers
+REC_TRAIN_BATCH, REC_MASKED, REC_CHUNK = 8192, 40, 8192   # a microbatch
+GIN_TRAIN_STEPS = 3
+EQ_TRAIN_LAYERS = 4                            # of EquiformerV2's 12
+
+
+def node_ce(torch, out, labels, mask):
+    """The node cross-entropy of repro/launch/steps.py::_gnn_loss: the mean
+    over the live nodes, in fp32."""
+    logits = out.float()
+    ce = torch.logsumexp(logits, -1) - logits.gather(
+        -1, labels.long()[:, None])[:, 0]
+    m = mask.to(ce.dtype)
+    return (ce * m).sum() / torch.clamp_min(m.sum(), 1)
+
+
+def timed_steps(torch, dev, step, n_steps: int):
+    """`step(i)` for i < n_steps, each ending in a device synchronize:
+    (seconds a step, the losses as floats, peak GiB over the steps)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses = [], []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        loss = step(i)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    return secs, losses, torch.cuda.max_memory_allocated() / 2**30
+
+
+def grads_of(torch, loss_of, params):
+    """(loss, gradients in the tree's leaf order) of loss_of(params)."""
+    from torch.utils import _pytree as pytree
+    leaves, spec = pytree.tree_flatten(params)
+    live = [t.detach().requires_grad_() for t in leaves]
+    loss = loss_of(pytree.tree_unflatten(live, spec))
+    return loss.detach(), torch.autograd.grad(loss, live)
+
+
+def attention_backward_vs_sdpa(torch, fa, q, k, v, reps: int) -> dict:
+    """flash_attention's backward (the plain recompute by query chunks)
+    against SDPA's backward at one training layer's q, k, v, both timed
+    with CUDA events."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    B, S, H, D = q.shape
+    g = randn(torch, q.shape, q.device, 7).to(q.dtype)
+    dq, dk, dv = fa_ops._backward(q, k, v, g, True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    gt = g.transpose(1, 2)
+    lib = torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+    torch.cuda.synchronize()
+    errs = [float((a.float() - b.transpose(1, 2).float()).abs().max())
+            for a, b in zip((dq, dk, dv), lib)]
+    res = {"B": B, "S": S, "H": H, "Hkv": k.shape[2], "D": D,
+           "dtype": str(q.dtype).replace("torch.", ""),
+           "vs_sdpa_max_abs_err": max(errs)}
+    res["ms"] = cuda_ms(torch, lambda: fa_ops._backward(q, k, v, g, True),
+                        reps)
+    res["sdpa_backward_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), gt, retain_graph=True), reps)
+    return res
+
+
+def train_granite(torch, fa, dev, args, clock) -> dict:
+    """(a) granite-3-2b at its full config: fp32 master params and AdamW
+    state, bf16 compute, remat "full"; `launch/train.py::train_step` for
+    the first 4 steps of the trainer's default 200-step schedule on one
+    TokenStream batch of 2 x 4,096 tokens. Gates: finite
+    losses, the loss falling from step 0 to step 3, 80 flash_attention
+    launches a step; on a 2-layer fp32 cut at full width, the gradient
+    with the kernel forward within 1e-4 of the plain forward's."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream, TokenStreamConfig
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import (AdamWConfig, adamw_init,
+                                   linear_warmup_cosine)
+    cfg = get_arch("granite-3-2b").config
+    n_steps = LM_TRAIN_STEPS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 60)
+    params = clock("15a granite-3-2b init_params (fp32)", tf.init_params,
+                   cfg, gen, dev)
+    opt = adamw_init(params)
+    ocfg = AdamWConfig()
+    # the first steps of the trainer's default run (--steps 200: a 20-step
+    # warm-up); a 4-step run's own schedule (1 warm-up step) takes a full
+    # 3e-4 step at once, and from random init the loss then climbs
+    sched = linear_warmup_cosine(min(20, 200 // 10 + 1), 200)
+    np_batch = TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, batch=LM_TRAIN_BATCH,
+        seq_len=LM_TRAIN_SEQ, seed=args.seed)).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    per_step = []
+
+    def step(i):
+        nonlocal params, opt
+        n0 = fa_ops.launches
+        params, opt, loss, _ = train_step(params, opt, batch, cfg, ocfg,
+                                          sched)
+        per_step.append(fa_ops.launches - n0)
+        return loss
+
+    fa_ops.launches = 0                        # the training path (a)...
+    secs, losses, peak = timed_steps(torch, dev, step, n_steps)
+    launches = fa_ops.launches                 # ...ends here
+    check(all(np.isfinite(losses)), f"15a: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0],
+          f"15a: the loss did not fall from step 0 to {n_steps - 1}: "
+          f"{losses}")
+    check(per_step == [2 * cfg.n_layers] * n_steps,
+          f"15a: flash_attention launches a step {per_step}, expected "
+          f"{2 * cfg.n_layers} (the forward and the remat recompute)")
+    step_s = float(np.median(secs[1:]))
+    flops = 6 * cfg.n_params * tokens
+    res = {"n_params": cfg.n_params, "tokens_a_step": tokens,
+           "step_s": secs, "losses": losses, "peak_gib": peak,
+           "tokens_per_s": tokens / step_s,
+           "model_tflops_per_s": flops / step_s / 1e12,
+           "model_flops_share_of_989": flops / step_s / BF16_OPS_PER_S,
+           "launches": launches, "launches_a_step": per_step}
+    with torch.no_grad():
+        q, k, v = attention_inputs(torch, tf, params, cfg, batch["tokens"])
+    res["attention_backward"] = attention_backward_vs_sdpa(torch, fa, q, k,
+                                                           v, 3)
+    del q, k, v, opt
+
+    # the 2-layer fp32 cut: the kernel's gradient against the plain one
+    cut = dataclasses.replace(cfg, n_layers=2, compute_dtype=torch.float32)
+    p2 = {"embed": params["embed"], "layers": first_layers(
+        params["layers"], 2), "final_norm": params["final_norm"],
+          "lm_head": params["lm_head"]}
+    b2 = {k: v[:1, :2048] for k, v in batch.items()}
+    n0 = fa_ops.launches
+    loss_k, g_k = grads_of(torch, lambda p: tf.loss_fn(p, b2, cut), p2)
+    check(fa_ops.launches == n0 + 2 * cut.n_layers,
+          f"15a: {fa_ops.launches - n0} flash_attention launches in the "
+          f"2-layer cut's gradient")
+    with plain_attention(tf, fa):
+        loss_p, g_p = grads_of(torch, lambda p: tf.loss_fn(p, b2, cut), p2)
+    err = max(float((a - b).abs().max()) for a, b in zip(g_k, g_p))
+    ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+             for a, b in zip(g_k, g_p))
+    res["fp32_cut"] = {"tokens": int(b2["tokens"].numel()),
+                       "loss_kernel": float(loss_k), "loss_plain":
+                       float(loss_p), "grad_max_abs_err": err}
+    check(ok, f"15a: 2-layer fp32 cut, gradient with the kernel vs the "
+              f"plain forward: max abs err {err}")
+    del params, p2, g_k, g_p, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_moe(torch, dev, args, clock) -> dict:
+    """(b) phi3.5-moe at full width cut to 2 of 32 layers, fp32 master
+    params and AdamW state, bf16 compute: 2 `train_step`s on 1 x 4,096
+    tokens. Gates: finite losses, the balance loss above 0, the router's
+    gradient not 0 (its first moment after step 0 is (1 - b1) times the
+    clipped gradient)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream, TokenStreamConfig
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b").config,
+                              n_layers=MOE_TRAIN_LAYERS,
+                              param_dtype=torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 61)
+    params = clock("15b phi3.5-moe init_params (fp32, 2 layers)",
+                   tf.init_params, cfg, gen, dev)
+    opt = adamw_init(params)
+    ocfg = AdamWConfig()
+    np_batch = TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, batch=1, seq_len=LM_TRAIN_SEQ,
+        seed=args.seed + 1)).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
+    with torch.no_grad():
+        _, aux = tf.forward(params, batch["tokens"], cfg)
+    aux = float(aux)
+    router_m = []
+
+    def step(i):
+        nonlocal params, opt
+        params, opt, loss, _ = train_step(params, opt, batch, cfg, ocfg)
+        if i == 0:
+            router_m.append(float(opt["m"]["layers"]["mlp"]["router"]
+                                  .abs().sum()))
+        return loss
+
+    fa_ops.launches = 0                        # the training path (b)...
+    secs, losses, peak = timed_steps(torch, dev, step, MOE_TRAIN_STEPS)
+    launches = fa_ops.launches                 # ...ends here
+    check(all(np.isfinite(losses)), f"15b: a loss is not finite: {losses}")
+    check(aux > 0, f"15b: the MoE balance loss is {aux}")
+    check(router_m[0] > 0, "15b: the router's gradient is 0")
+    check(launches == 2 * cfg.n_layers * MOE_TRAIN_STEPS,
+          f"15b: {launches} flash_attention launches")
+    res = {"n_params": cfg.n_params, "tokens_a_step": LM_TRAIN_SEQ,
+           "step_s": secs, "losses": losses, "aux": aux,
+           "router_m_abs_sum": router_m[0], "peak_gib": peak,
+           "launches": launches}
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_bert4rec(torch, dev, args, clock) -> dict:
+    """(c) bert4rec at its full config, one of train_batch's 8
+    microbatches (8,192 sequences), 40 masked slots a sequence, vocab
+    chunks of 8,192: 2 `train_step`s of `masked_lm_loss`. Gates: finite
+    losses, the item table's gradient not 0 (its first moment after step
+    0)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import bert4rec as b4r
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = get_arch("bert4rec").config
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 62)
+    params = clock("15c bert4rec init_params (fp32)", b4r.init_params, gen,
+                   cfg, dev)
+    opt = adamw_init(params)
+    seq, _ = history_bags(REC_TRAIN_BATCH, cfg.seq_len, cfg.n_items,
+                          args.seed + 63)
+    # 40 slots a sequence, its items first: a shorter history's other
+    # slots stay padding with label 0 (unused)
+    rng = np.random.default_rng(args.seed + 64)
+    mpos = np.argsort(rng.random(seq.shape) + (seq == 0), 1)[
+        :, :REC_MASKED].astype(np.int32)
+    labels = np.take_along_axis(seq, mpos, 1)
+    np.put_along_axis(seq, mpos, np.where(labels > 0, cfg.vocab - 1, 0), 1)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             (("item_seq", seq), ("masked_positions", mpos),
+              ("labels", labels))}
+
+    def loss_fn(p, b, c):
+        return b4r.masked_lm_loss(p, b, c, vocab_chunk=REC_CHUNK)
+
+    table_m = []
+
+    def step(i):
+        nonlocal params, opt
+        params, opt, loss, _ = train_step(params, opt, batch, cfg,
+                                          AdamWConfig(), loss_fn=loss_fn)
+        if i == 0:
+            table_m.append(float(opt["m"]["item_embed"].abs().sum()))
+        return loss
+
+    secs, losses, peak = timed_steps(torch, dev, step, 2)
+    check(all(np.isfinite(losses)), f"15c: a loss is not finite: {losses}")
+    check(table_m[0] > 0, "15c: the item table's gradient is 0")
+    R = REC_TRAIN_BATCH * REC_MASKED
+    res = {"sequences": REC_TRAIN_BATCH, "masked_rows": R,
+           "labelled_rows": int((labels > 0).sum()),
+           "vocab_chunks": -(-cfg.padded_vocab // REC_CHUNK),
+           "step_s": secs, "losses": losses, "peak_gib": peak,
+           # the scores forward, their recompute, d(rows) and d(table)
+           "scoring_flop_a_step": 4 * 2 * R * cfg.padded_vocab
+           * cfg.embed_dim}
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def gnn_batch(torch, sub, table, labels_seed: int, n_cls: int, dev):
+    """A sampled subgraph on `dev` with its features gathered from the
+    card's table and seeded labels."""
+    nodes = torch.from_numpy(sub.nodes).to(table.device)
+    b = {k: torch.from_numpy(getattr(sub, k)).to(dev)
+         for k in ("src", "dst", "edge_mask", "node_mask")}
+    b["x"] = (table.index_select(0, nodes)
+              * b["node_mask"].to(table.device)[:, None]).to(dev)
+    b["labels"] = torch.from_numpy(np.random.default_rng(labels_seed)
+                                   .integers(0, n_cls, len(sub.nodes))).to(dev)
+    return b
+
+
+def train_gin(torch, ps, sub, n: int, dev, args) -> dict:
+    """(d) gin-tu (5 x 64, adapted to minibatch_lg) on phase 11's first
+    sampled minibatch: 3 AdamW steps of the node cross-entropy. Gates: the
+    first step's gradient on the card within 1e-4 of the CPU's; losses
+    finite; psw_spmm launches 10 a step (the forward's 5 and the
+    transpose's 5)."""
+    from repro_torch import convert
+    from repro_torch.configs.gnn_common import GNN_SHAPES
+    from repro_torch.launch.train import train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cell = GNN_SHAPES["minibatch_lg"]
+    models, cfgs, params = gnn_models(torch, dev, args.seed + 33)
+    gin, cfg, params = models["gin-tu"], cfgs["gin-tu"], params["gin-tu"]
+    table = randn(torch, (n, cell["d_feat"]), dev, args.seed + 32)
+    batch = gnn_batch(torch, sub, table, args.seed + 65, cell["n_classes"],
+                      dev)
+    del table
+
+    def loss_fn(p, b, c):
+        return node_ce(torch, gin.forward(p, b, c), b["labels"],
+                       b["node_mask"])
+
+    p_cpu = convert.gnn_params_from_arrays(
+        convert.gnn_params_to_arrays(params), params, "cpu")
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    loss_d, g_d = grads_of(torch, lambda p: loss_fn(p, batch, cfg), params)
+    loss_c, g_c = grads_of(torch, lambda p: loss_fn(p, cpu_batch, cfg),
+                           p_cpu)
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(g_d, g_c))
+    check(all(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4)
+              for a, b in zip(g_d, g_c)),
+          f"15d: GIN's gradient on the card vs the CPU: max abs err {err}")
+    del g_d, g_c, p_cpu, cpu_batch
+    opt = adamw_init(params)
+
+    def step(i):
+        nonlocal params, opt
+        params, opt, loss, _ = train_step(params, opt, batch, cfg,
+                                          AdamWConfig(), loss_fn=loss_fn)
+        return loss
+
+    ps.ops.launches = 0                        # the training path (d)...
+    secs, losses, peak = timed_steps(torch, dev, step, GIN_TRAIN_STEPS)
+    launches = ps.ops.launches                 # ...ends here
+    check(all(np.isfinite(losses)), f"15d: a loss is not finite: {losses}")
+    check(launches == 2 * cfg.n_layers * GIN_TRAIN_STEPS,
+          f"15d: {launches} psw_spmm launches in {GIN_TRAIN_STEPS} steps")
+    res = {"nodes": int(sub.node_mask.sum()), "edges":
+           int(sub.edge_mask.sum()), "loss_card": float(loss_d),
+           "loss_cpu": float(loss_c), "grad_max_abs_err": err,
+           "step_s": secs, "losses": losses, "peak_gib": peak,
+           "launches": launches}
+    return res, batch
+
+
+def equiformer_inputs(torch, n: int, seed: int, dev):
+    """Reddit has no geometry, so EquiformerV2's node inputs are made as
+    the reference's config says ("unit-ball positions and hashed species
+    ids"): one position a vertex drawn uniformly in the unit ball (a
+    direction from a normal draw, a radius u^(1/3)), a table on the card;
+    species (vertex id * 2654435761 mod 2^32) mod 128. Returns (the
+    positions, the species, the generator the draw leaves)."""
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((n, 3))
+    pos_np = u / np.linalg.norm(u, axis=1, keepdims=True) \
+        * rng.random((n, 1)) ** (1 / 3)
+    pos_table = torch.from_numpy(pos_np.astype(np.float32)).to(dev)
+    species_table = torch.arange(n, device=dev) * 2654435761 % 2**32 % 128
+    return pos_table, species_table, rng
+
+
+def train_equiformer(torch, ps, sub, n: int, dev, args) -> dict:
+    """(e) EquiformerV2 at phase 12's config (psw_ring on one rank, 4 edge
+    chunks, remat) cut to 4 of 12 layers, one AdamW step of the node
+    cross-entropy on phase 12's first batch. Gates: finite gradients (a
+    finite global norm above 0); psw_spmm launches 3 a layer and chunk
+    (the forward, the layer's recompute, the transpose)."""
+    import dataclasses
+    from repro_torch.launch.train import train_step
+    from repro_torch.models.gnn import equiformer_v2 as eq
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = dataclasses.replace(equiformer_config(torch),
+                              n_layers=EQ_TRAIN_LAYERS)
+    pos, species, _ = equiformer_inputs(torch, n, args.seed + 50, dev)
+    nodes = torch.from_numpy(sub.nodes).to(dev)
+    batch = {"species": species[nodes], "pos": pos[nodes]}
+    batch.update({k: torch.from_numpy(getattr(sub, k)).to(dev)
+                  for k in ("src", "dst", "edge_mask", "node_mask")})
+    batch["labels"] = torch.from_numpy(np.random.default_rng(
+        args.seed + 66).integers(0, cfg.d_out, len(sub.nodes))).to(dev)
+    del pos, species, nodes
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 51)
+    params = eq.init_params(gen, cfg, dev)
+    opt = adamw_init(params)
+
+    def loss_fn(p, b, c):
+        return node_ce(torch, eq.forward(p, b, c), b["labels"],
+                       b["node_mask"])
+
+    gnorm = []
+
+    def step(i):
+        nonlocal params, opt
+        params, opt, loss, metrics = train_step(
+            params, opt, batch, cfg, AdamWConfig(), loss_fn=loss_fn)
+        gnorm.append(float(metrics["grad_norm"]))
+        return loss
+
+    ps.ops.launches = 0                        # the training path (e)...
+    secs, losses, peak = timed_steps(torch, dev, step, 1)
+    launches = ps.ops.launches                 # ...ends here
+    want = 3 * cfg.n_layers * cfg.edge_chunks
+    check(np.isfinite(losses[0]) and np.isfinite(gnorm[0]) and gnorm[0] > 0,
+          f"15e: loss {losses[0]}, gradient norm {gnorm[0]}")
+    check(launches == want, f"15e: {launches} psw_spmm launches, expected "
+          f"{want} (forward, recompute and transpose a layer and chunk)")
+    res = {"layers": cfg.n_layers, "edge_chunks": cfg.edge_chunks,
+           "nodes": int(sub.node_mask.sum()),
+           "edges": int(sub.edge_mask.sum()), "step_s": secs,
+           "losses": losses, "grad_norm": gnorm[0], "peak_gib": peak,
+           "launches": launches}
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def transpose_vs_plain(torch, ps, ps_kernel, lay, g, reps: int) -> dict:
+    """psw_spmm's backward on the card: A^T g over `transpose_rows(lay)`
+    (built on the card, timed on its own; equal to `prepare_rows` of the
+    swapped edges) against its plain version (rowwise 1e-5), with the
+    bytes-read-once bound and `torch.sparse.mm` over the same CSR."""
+    t0 = time.perf_counter()
+    lay.cache.pop("transpose", None)
+    tr = ps.transpose_rows(lay)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    rows = torch.repeat_interleave(
+        torch.arange(lay.n_rows, device=lay.col.device),
+        lay.row_ptr[1:] - lay.row_ptr[:-1])
+    cols = lay.col.long()
+    want = ps.prepare_rows(rows.repeat_interleave(lay.val.long()),
+                           cols.repeat_interleave(lay.val.long()),
+                           lay.n_src, lay.block, device=g.device,
+                           n_src=lay.n_rows)
+    same = all(torch.equal(getattr(tr, f), getattr(want, f)) for f in
+               ("row_ptr", "col", "val", "hub_rows", "hub_ptr", "chunks"))
+    check(same, "15f: transpose_rows != prepare_rows of the swapped edges")
+    del want, rows, cols
+    out, res = psw_spmm_layout_vs_plain(torch, ps, ps_kernel, tr, g, reps)
+    n, F = tr.n_rows, g.shape[1]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")        # "sparse CSR is in beta"
+        adj = torch.sparse_csr_tensor(tr.row_ptr, tr.col.long(), tr.val,
+                                      size=(n, tr.n_src))
+    lib = torch.sparse.mm(adj, g)
+    torch.cuda.synchronize()
+    lib_ok, lib_err, _ = row_tolerance(lib, out, 1e-4, 1e-4)
+    check(lib_ok, f"15f: torch.sparse.mm vs the transpose: {lib_err}")
+    del lib, out
+    library_ms = cuda_ms(torch, lambda: torch.sparse.mm(adj, g), reps)
+    del adj
+    g_rows = int(tr.col.unique().numel())
+    bytes_once = (n + 1) * 8 + tr.nnz * 8 + (g_rows + n) * F * 4
+    return {"transpose_rows_ms": build_ms, "g_rows_read": g_rows, **res,
+            "library_ms": library_ms, "library_max_abs_err": lib_err,
+            **bound(bytes_once, 2 * tr.nnz * F, FP32_OPS_PER_S)}
+
+
+def phase_train(torch, ps, ps_kernel, subs, n: int, dev, args,
+                clock) -> dict:
+    """Phase 15, training on the card, each model freed before the next:
+    (a) granite-3-2b, (b) phi3.5-moe cut to 2 layers, (c) bert4rec, (d)
+    GIN on phase 11's batch, (e) EquiformerV2 cut to 4 layers on phase
+    12's, (f) psw_spmm's transpose at the GIN shape and EquiformerV2's
+    scatter shape against its plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    t_phase = time.perf_counter()
+    log("phase 15 training on the card")
+    res = {"granite": train_granite(torch, fa, dev, args, clock)}
+    log("  15a granite-3-2b: " + json.dumps(res["granite"]))
+    res["phi_moe"] = train_moe(torch, dev, args, clock)
+    log("  15b phi3.5-moe: " + json.dumps(res["phi_moe"]))
+    res["bert4rec"] = train_bert4rec(torch, dev, args, clock)
+    log("  15c bert4rec: " + json.dumps(res["bert4rec"]))
+    res["gin"], gin_batch = train_gin(torch, ps, subs["gin"], n, dev, args)
+    log("  15d gin-tu: " + json.dumps(res["gin"]))
+    res["equiformer"] = train_equiformer(torch, ps, subs["equiformer"], n,
+                                         dev, args)
+    log("  15e EquiformerV2: " + json.dumps(res["equiformer"]))
+
+    # (f) the transpose: GIN's layout (the batch's live edges) and one
+    # EquiformerV2 scatter chunk (rows the destinations, sources the
+    # chunk's live edges), each against the cotangent's width
+    live = gin_batch["edge_mask"]
+    lay = ps.prepare_rows(gin_batch["src"][live], gin_batch["dst"][live],
+                          gin_batch["x"].shape[0], device=dev)
+    g = randn(torch, (lay.n_rows, 64), dev, args.seed + 67)
+    res["transpose_gin"] = transpose_vs_plain(torch, ps, ps_kernel, lay, g,
+                                              args.reps)
+    log("  15f transpose at the GIN shape: "
+        + json.dumps(res["transpose_gin"]))
+    del gin_batch, lay, g
+    sub = subs["equiformer"]
+    cfg = equiformer_config(torch)
+    E = len(sub.edge_mask)
+    Ec = E // cfg.edge_chunks
+    emask = torch.from_numpy(sub.edge_mask[:Ec]).to(dev)
+    dst = torch.from_numpy(sub.dst[:Ec]).to(dev).long()
+    live = torch.nonzero(emask).flatten()
+    lay = ps.prepare_rows(live, dst[live], len(sub.nodes), device=dev,
+                          n_src=Ec)
+    K = (cfg.l_max + 1) ** 2
+    g = randn(torch, (lay.n_rows, K * cfg.d_hidden), dev, args.seed + 68)
+    res["transpose_equiformer"] = transpose_vs_plain(torch, ps, ps_kernel,
+                                                     lay, g, args.reps)
+    log("  15f transpose at the EquiformerV2 scatter shape: "
+        + json.dumps(res["transpose_equiformer"]))
+    del lay, g
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"train path: {res['granite']['launches']} + "
+        f"{res['phi_moe']['launches']} flash_attention launches, "
+        f"{res['gin']['launches']} + {res['equiformer']['launches']} "
+        f"psw_spmm launches; " + json.dumps({"phase_s": res["phase_s"]}))
+    return res
+
+
 def build_kernels(common, kernels) -> None:
     """Build every kernel's library at once (one nvcc each, all started
     together), load them, then print ptxas's register and spill report."""
@@ -3092,6 +3638,12 @@ def main() -> None:
     log(f"peak device memory {max(moe[a]['peak_gib'] for a in MOE_ARCHS):.2f}"
         f" GiB (phase 13), {rec['peak_gib']:.2f} GiB (phase 14), "
         + host_memory())
+    train = phase_train(torch, ps, ps_kernel, {"gin": gnn.pop("sub"),
+                                               "equiformer": eqv.pop("sub")},
+                        args.gnn_vertices, dev, args, clock)
+    log("peak device memory (phase 15): " + json.dumps(
+        {k: v["peak_gib"] for k, v in train.items()
+         if isinstance(v, dict) and "peak_gib" in v}) + ", " + host_memory())
 
     kernels = [
         kernel_entry("frontier_expand",
@@ -3108,7 +3660,9 @@ def main() -> None:
                      "src/repro_torch/kernels/psw_spmm/csrc/psw_spmm.cu",
                      "src/repro/kernels/psw_spmm/psw_spmm.py:49",
                      agg_launches["psw_spmm"], spmm_res[0],
-                     spmm_res + [gnn["psw_spmm"], eqv["psw_spmm"]]),
+                     spmm_res + [gnn["psw_spmm"], eqv["psw_spmm"],
+                                 train["transpose_gin"],
+                                 train["transpose_equiformer"]]),
         kernel_entry("embedding_bag",
                      "src/repro_torch/kernels/embedding_bag/csrc/"
                      "embedding_bag.cu",
@@ -3118,7 +3672,8 @@ def main() -> None:
                      "src/repro_torch/kernels/flash_attention/csrc/"
                      "flash_attention.cu",
                      "src/repro/kernels/flash_attention/flash_attention.py:69",
-                     fa_launches, fa_main, fa_shapes),
+                     fa_launches, fa_main,
+                     fa_shapes + [train["granite"]["attention_backward"]]),
     ]
     for entry in kernels:
         if entry["name"] in disk_launches:
@@ -3128,8 +3683,14 @@ def main() -> None:
         if entry["name"] == "psw_spmm":
             entry["gnn_path_launches"] = gnn["launches"]
             entry["equiformer_path_launches"] = eqv["launches"]
+            entry["train_path_launches"] = {
+                "gin": train["gin"]["launches"],
+                "equiformer": train["equiformer"]["launches"]}
         if entry["name"] == "flash_attention":
             entry["moe_path_launches"] = moe["launches"]
+            entry["train_path_launches"] = {
+                "granite": train["granite"]["launches"],
+                "phi_moe": train["phi_moe"]["launches"]}
     log("phase seconds: " + json.dumps(clock.seconds))
     log(json.dumps({"kernels": kernels}))
 

@@ -170,10 +170,10 @@ class CheckpointManager:
                     pass
             self._write_manifest(m)
 
+        self.wait()          # one save at a time: two of a step share a tmp file
         if blocking:
             _do()
         else:
-            self.wait()
             self._thread = threading.Thread(target=_do, daemon=True)
             self._thread.start()
         return os.path.join(self.dir, f"step_{step:010d}.npz")

@@ -29,6 +29,9 @@ key is its index: `encoder.0.w`, `layers.3.mlp.1.b`, `layers.3.eps`,
 `heads.5.0.w`, `layers.11.so2.m2_i`. A bert4rec's params
 (`bert4rec_params_to_arrays` / `bert4rec_params_from_arrays`) likewise:
 `item_embed`, `blocks.1.wq`, `out_bias`, ...
+An AdamW state over any of these trees (`adamw_state_to_arrays` /
+`adamw_state_from_arrays`) travels as `m.<param key>`, `v.<param key>`
+and `step`.
 bfloat16 leaves cross as float32, which holds them exactly."""
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from typing import Dict
 import numpy as np
 
 import torch
+from torch.utils import _pytree as pytree
 
 from .core.pal import EdgePartition, GraphPAL, IntervalMap
 from .core.psw import DeviceGraph, segment_ptr
@@ -46,7 +50,8 @@ from .models import bert4rec
 from .models.gnn import equiformer_v2, gin, meshgraphnet, pna
 from .models.transformer import TransformerConfig, _layer_shapes
 
-__all__ = ["bert4rec_params_from_arrays", "bert4rec_params_to_arrays",
+__all__ = ["adamw_state_from_arrays", "adamw_state_to_arrays",
+           "bert4rec_params_from_arrays", "bert4rec_params_to_arrays",
            "device_graph_from_arrays", "device_graph_to_arrays",
            "gnn_params_from_arrays", "gnn_params_to_arrays",
            "kv_cache_from_arrays", "kv_cache_to_arrays", "pal_from_arrays",
@@ -330,3 +335,32 @@ def bert4rec_params_from_arrays(d: Dict[str, np.ndarray],
     `bert4rec.init_params` gives `cfg`."""
     template = bert4rec.init_params(torch.Generator(), cfg, device="meta")
     return _tree_from_template(d, template, device)
+
+
+# an AdamW state ({"m", "v", "step"}, either package's) flattens as any
+# tree does: `m.<param key>`, `v.<param key>` and `step`
+adamw_state_to_arrays = gnn_params_to_arrays
+
+
+def adamw_state_from_arrays(d: Dict[str, np.ndarray], params, device):
+    """Rebuild a port AdamW state on `device` from `adamw_state_to_arrays`
+    output: m and v float32 trees of the port params tree `params`'s
+    layout and shapes (keys must match them), step an int32 0-d tensor."""
+    template = pytree.tree_map(
+        lambda t: torch.empty(t.shape, dtype=torch.float32, device="meta"),
+        params)
+    if "step" not in d:
+        raise ValueError("the state has no step")
+    moments = {}
+    for name in ("m", "v"):
+        pre = name + "."
+        moments[name] = _tree_from_template(
+            {k[len(pre):]: v for k, v in d.items() if k.startswith(pre)},
+            template, device)
+    extra = sorted(k for k in d
+                   if k != "step" and not k.startswith(("m.", "v.")))
+    if extra:
+        raise ValueError(f"keys outside m, v and step: {extra}")
+    step = torch.tensor(int(np.asarray(d["step"])), dtype=torch.int32,
+                        device=torch.device(device))
+    return {**moments, "step": step}

@@ -7,9 +7,12 @@ tensors; there is no fallback from one to the other, so a kernel that
 fails to build or launch raises. Its backward recomputes the forward's own
 plain version, `flash_attention_torch` (causal mask aligned top-left), and
 differentiates that, so the gradient is the forward's for every S and T.
-The reference's custom VJP recomputes through its `attention_ref` instead,
-whose mask is aligned bottom-right: the two gradients agree only for
-S == T (ROADMAP queue 3 note b). The kernel masks ragged S and T itself,
+It does so one chunk of Q_CHUNK queries at a time (with the keys a causal
+chunk can see), adding each chunk's dk and dv in fp32, so autograd holds
+one chunk's score blocks at a time, never the whole layer's. The
+reference's custom VJP also recomputes (through XLA, no backward kernel),
+but through its `attention_ref`, whose mask is aligned bottom-right: the
+two gradients agree only for S == T (ROADMAP queue 3 note b). The kernel masks ragged S and T itself,
 so nothing is padded."""
 from __future__ import annotations
 
@@ -17,7 +20,11 @@ import torch
 
 from ..common import count_launch
 from . import kernel as _kernel
-from .ref import flash_attention_torch
+from .ref import attention_chunked, flash_attention_torch
+
+# the backward's query chunk: flash_attention_torch's, so each chunk
+# recomputes exactly the rows the forward's plain version computes
+Q_CHUNK = 512
 
 __all__ = ["flash_attention"]
 
@@ -67,6 +74,33 @@ def _forward(q, k, v, causal: bool) -> torch.Tensor:
     return flash_attention_torch(q, k, v, causal)
 
 
+def _backward(q, k, v, g, causal: bool):
+    """(dq, dk, dv) of `flash_attention_torch` at (q, k, v) against g,
+    differentiated one query chunk at a time in fp32."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    kf, vf = k.float(), v.float()
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for s0 in range(0, S, Q_CHUNK):
+        s1 = min(s0 + Q_CHUNK, S)
+        t1 = min(T, s1) if causal else T    # keys the chunk can see
+        with torch.enable_grad():
+            qc = q[:, s0:s1].float().requires_grad_()
+            kc = kf[:, :t1].detach().requires_grad_()
+            vc = vf[:, :t1].detach().requires_grad_()
+            out = attention_chunked(qc, kc, vc, causal=causal,
+                                    q_chunk=Q_CHUNK, kv_chunk=1024,
+                                    q_pos0=s0)
+            gq, gk, gv = torch.autograd.grad(out, (qc, kc, vc),
+                                             g[:, s0:s1].float())
+        dq[:, s0:s1] = gq
+        dk[:, :t1] += gk
+        dv[:, :t1] += gv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -77,11 +111,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = flash_attention_torch(*qkv, ctx.causal)
-            dq, dk, dv = torch.autograd.grad(out, qkv, g)
-        return dq, dk, dv, None
+        return (*_backward(q, k, v, g, ctx.causal), None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,7 +14,11 @@ holds only the nonzeros (`RowLayout`):
 `psw_spmm_rows` launches the CUDA kernel for CUDA tensors and takes the
 plain torch version (`ref.py::psw_spmm_rows_torch`) for CPU tensors; there
 is no fallback from one to the other, so a kernel that fails to build or
-launch raises. Only stored entries are multiplied: a non-finite x[s]
+launch raises. It is an `autograd.Function`: the gradient of A @ x is
+dx = A^T @ g, which runs through the same wrapper, so the same kernel (or
+plain version) computes it, over `transpose_rows(layout)`, built on the
+layout's device at the first backward and cached on the layout. The values
+(edge counts) get no gradient. Only stored entries are multiplied: a non-finite x[s]
 reaches only the rows with an edge from s, as in `spmm_dense_ref` (the
 reference's dense `tiles @ x` spreads 0 * inf = NaN over every row of an
 active tile; ROADMAP queue 3). For finite x the results are the tiles'."""
@@ -33,7 +37,8 @@ from . import kernel as _kernel
 from .ref import psw_spmm_rows_torch
 
 __all__ = ["CHUNK", "RowLayout", "compact_tiles", "prepare_blocks",
-           "prepare_rows", "psw_spmm", "psw_spmm_edges", "psw_spmm_rows"]
+           "prepare_rows", "psw_spmm", "psw_spmm_edges", "psw_spmm_rows",
+           "transpose_rows"]
 
 # a row with more entries than this is a hub, cut into chunks
 CHUNK = 32
@@ -59,6 +64,9 @@ class RowLayout:
     n_src: int
     block: int
     max_row: int
+    # what is derived from the layout once and kept: "transpose"
+    cache: dict = dataclasses.field(default_factory=dict, compare=False,
+                                    repr=False)
 
     @property
     def n_rows(self) -> int:
@@ -151,6 +159,24 @@ def prepare_rows(src, dst, n_nodes: int, block: int = 128,
     return _layout(rows, keys - rows * n_src, counts, n_nodes, n_src, block)
 
 
+def transpose_rows(layout: RowLayout) -> RowLayout:
+    """The RowLayout of A^T on the layout's device: n_src rows, n_rows
+    sources, each entry keeping its value. The entries are in (row,
+    source) order, so a stable sort by source puts them in (source, row)
+    order: `prepare_rows` of the swapped edges, bitwise. Built once and
+    cached on the layout."""
+    t = layout.cache.get("transpose")
+    if t is None:
+        rows = torch.repeat_interleave(
+            torch.arange(layout.n_rows, device=layout.col.device),
+            layout.row_ptr[1:] - layout.row_ptr[:-1])
+        src, order = torch.sort(layout.col.long(), stable=True)
+        t = _layout(src, rows[order], layout.val[order], layout.n_src,
+                    layout.n_rows, layout.block)
+        layout.cache["transpose"] = t
+    return t
+
+
 def compact_tiles(coords: torch.Tensor, tiles: torch.Tensor,
                   n_dst_blocks: int, block: int,
                   n_src_blocks: int) -> RowLayout:
@@ -189,26 +215,9 @@ def prepare_blocks(src: np.ndarray, dst: np.ndarray, n_nodes: int,
     return coords[order], tiles[order], n_blocks
 
 
-def psw_spmm_rows(layout: RowLayout, x: torch.Tensor) -> torch.Tensor:
-    """A @ x over a RowLayout on x's device: x (n_src, F) float32. Returns
-    (n_rows, F); a row without entries is zero. The kernel has no
-    backward: on a CUDA x that needs a gradient it raises rather than
-    return a result autograd cannot see through."""
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"x must be a torch.Tensor, not {type(x).__name__}")
-    if (x.dtype != torch.float32 or x.dim() != 2
-            or x.shape[0] != layout.n_src):
-        raise ValueError(f"expected float32 x ({layout.n_src}, F); got "
-                         f"{x.dtype} {tuple(x.shape)}")
-    if layout.row_ptr.device != x.device:
-        raise ValueError(f"layout on {layout.row_ptr.device}, x on "
-                         f"{x.device}: expected one device")
+def _rows(layout: RowLayout, x: torch.Tensor) -> torch.Tensor:
+    """A @ x: the kernel for a CUDA x, the plain version for a CPU x."""
     if x.device.type == "cuda":
-        if x.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "psw_spmm_rows has no backward on CUDA tensors (ROADMAP "
-                "queue 1, slice 8b): call it under torch.no_grad(), or on "
-                "the CPU, whose plain version autograd differentiates")
         out = torch.empty((layout.n_rows, x.shape[1]), dtype=torch.float32,
                           device=x.device)
         if out.numel():
@@ -221,6 +230,36 @@ def psw_spmm_rows(layout: RowLayout, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no psw_spmm path for {x.device}")
     return psw_spmm_rows_torch(layout.row_ptr, layout.col, layout.val, x,
                                layout.block)
+
+
+class _Rows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout):
+        ctx.layout = layout
+        return _rows(layout, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows(transpose_rows(ctx.layout), g), None
+
+
+def psw_spmm_rows(layout: RowLayout, x: torch.Tensor) -> torch.Tensor:
+    """A @ x over a RowLayout on x's device: x (n_src, F) float32. Returns
+    (n_rows, F); a row without entries is zero. Differentiable in x: the
+    backward is A^T @ g over `transpose_rows(layout)`, on the kernel for
+    CUDA tensors."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"x must be a torch.Tensor, not {type(x).__name__}")
+    if (x.dtype != torch.float32 or x.dim() != 2
+            or x.shape[0] != layout.n_src):
+        raise ValueError(f"expected float32 x ({layout.n_src}, F); got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if layout.row_ptr.device != x.device:
+        raise ValueError(f"layout on {layout.row_ptr.device}, x on "
+                         f"{x.device}: expected one device")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no psw_spmm path for {x.device}")
+    return _Rows.apply(x, layout)
 
 
 def psw_spmm(coords: torch.Tensor, tiles: torch.Tensor, x: torch.Tensor,

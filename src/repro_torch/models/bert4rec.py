@@ -1,7 +1,7 @@
-"""BERT4Rec (Sun et al., arXiv:1904.06690), serving half (port of the
-reference `repro/models/bert4rec.py`): a bidirectional transformer over
-item interaction sequences, scored against the whole item table or a
-candidate set.
+"""BERT4Rec (Sun et al., arXiv:1904.06690) (port of the reference
+`repro/models/bert4rec.py`): a bidirectional transformer over item
+interaction sequences, trained on a masked-item loss and scored against
+the whole item table or a candidate set.
 
 Plain torch throughout, as the reference is plain jnp: its attention is an
 einsum with a key-padding mask (no Pallas kernel), and its lookups are
@@ -15,8 +15,12 @@ Behaviour kept from the reference: the tanh GELU, a layer norm over the
 population variance with eps 1e-6 and no bias, a sequence that is all
 padding gives NaN (every key is masked), and `score_all_items` scores the
 padding row, the [MASK] row and the padded vocab rows like any other.
-`masked_lm_loss` gives the loss's value; its gradient is the training
-path's (ROADMAP slice 8b-ii)."""
+`masked_lm_loss` streams its logsumexp over vocab chunks, as the
+reference's `lax.scan` over a `jax.checkpoint`ed body does: the streaming
+logsumexp is an `autograd.Function` whose backward recomputes each chunk's
+scores, forms exp(scores - logz) and adds that chunk's share of d(rows),
+d(table rows) and d(bias), so no more than one chunk's (rows, chunk)
+scores is live at a time in either pass."""
 from __future__ import annotations
 
 import dataclasses
@@ -147,22 +151,61 @@ def masked_lm_loss(params, batch, cfg: Bert4RecConfig,
     table = params["item_embed"].float()
     bias = params["out_bias"].float()
     gold = (flat * table[lab]).sum(-1) + bias[lab]
-
-    # the reference zero-pads the table to a multiple of vocab_chunk; those
-    # rows score -inf and add nothing, so the last chunk is cut short here
-    m = torch.full((flat.shape[0],), -torch.inf, device=flat.device)
-    s = torch.zeros((flat.shape[0],), device=flat.device)
-    for start in range(0, cfg.padded_vocab, vocab_chunk):
-        emb = table[start:start + vocab_chunk]
-        sc = flat @ emb.T + bias[start:start + vocab_chunk][None, :]
-        ids = start + torch.arange(emb.shape[0], device=flat.device)
-        sc = torch.where(ids[None, :] < cfg.vocab, sc, -torch.inf)
-        m_new = torch.maximum(m, sc.max(-1).values)
-        s = s * torch.exp(m - m_new) + torch.exp(sc - m_new[:, None]).sum(-1)
-        m = m_new
-    logz = m + torch.log(torch.clamp_min(s, 1e-30))
+    logz = _StreamingLogsumexp.apply(flat, table, bias, cfg.vocab,
+                                     vocab_chunk)
     ce = (logz - gold) * valid
     return ce.sum() / torch.clamp_min(valid.sum(), 1)
+
+
+def _chunk_scores(flat, table, bias, start: int, chunk: int, vocab: int):
+    """flat @ table[start:start + chunk].T + bias, the ids at or above
+    `vocab` set to -inf: (R, rows of the chunk), fp32."""
+    sc = flat @ table[start:start + chunk].T
+    sc += bias[start:start + chunk]
+    if start + sc.shape[1] > vocab:
+        sc[:, max(vocab - start, 0):] = -torch.inf
+    return sc
+
+
+class _StreamingLogsumexp(torch.autograd.Function):
+    """logz (R,) of flat @ table.T + bias over the first `vocab` ids, one
+    chunk of table rows at a time. The reference zero-pads the table to a
+    multiple of the chunk; those rows score -inf and add nothing, so the
+    last chunk is cut short here."""
+
+    @staticmethod
+    def forward(ctx, flat, table, bias, vocab: int, chunk: int):
+        R, dev = flat.shape[0], flat.device
+        m = torch.full((R,), -torch.inf, device=dev)
+        s = torch.zeros((R,), device=dev)
+        for start in range(0, table.shape[0], chunk):
+            sc = _chunk_scores(flat, table, bias, start, chunk, vocab)
+            m_new = torch.maximum(m, sc.max(-1).values)
+            s = s * torch.exp(m - m_new) + sc.sub_(m_new[:, None]).exp_(
+                ).sum(-1)
+            m = m_new
+            del sc
+        logz = m + torch.log(torch.clamp_min(s, 1e-30))
+        ctx.save_for_backward(flat, table, bias, logz)
+        ctx.vocab, ctx.chunk = vocab, chunk
+        return logz
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, table, bias, logz = ctx.saved_tensors
+        d_flat = torch.zeros_like(flat)
+        d_table = torch.zeros_like(table)
+        d_bias = torch.zeros_like(bias)
+        for start in range(0, table.shape[0], ctx.chunk):
+            p = _chunk_scores(flat, table, bias, start, ctx.chunk, ctx.vocab)
+            # d logz / d score = softmax = exp(score - logz)
+            p.sub_(logz[:, None]).exp_().mul_(g[:, None])
+            stop = start + p.shape[1]
+            d_flat.addmm_(p, table[start:stop])
+            torch.mm(p.T, flat, out=d_table[start:stop])
+            torch.sum(p, 0, out=d_bias[start:stop])
+            del p
+        return d_flat, d_table, d_bias, None, None
 
 
 def score_all_items(params, item_seq: torch.Tensor, cfg: Bert4RecConfig):

@@ -19,7 +19,9 @@ The scatter of a chunk's messages into destinations is A @ msg, A the
 psw_spmm kernel: one `prepare_rows` layout a chunk, built once a forward
 before the layer loop, and one `psw_spmm_rows` a chunk and layer, which
 launches the kernel for CUDA tensors (or raises; it never drops to the
-plain version) and takes its plain version for CPU tensors. A masked edge
+plain version) and takes its plain version for CPU tensors; its backward
+runs the same kernel over each chunk layout's transpose, built once a
+forward. A masked edge
 (padding, or zero length) is left out of the layout where the reference
 multiplies its message by 0: finite messages give the same sums, and a
 non-finite message of a masked edge reaches nothing (ROADMAP queue 3,

@@ -8,7 +8,8 @@ on the psw_spmm kernel: one `prepare_rows` layout of the live edges a
 forward, on x's device, then `psw_spmm_rows` in every layer, which launches
 the hand-written kernel for CUDA tensors (or raises; it never drops to the
 plain version) and takes its plain version, `ref.py::psw_spmm_rows_torch`,
-for CPU tensors. `edge_chunks` is kept so the config equals the
+for CPU tensors. Under autograd its backward runs the same kernel over
+the layout's transpose (one a forward, shared by the layers). `edge_chunks` is kept so the config equals the
 reference's and has no effect: the reference chunks the sum to bound its
 per-edge x[src] transient, which the row-gather kernel never builds. The
 reference masks each gathered row

@@ -37,15 +37,27 @@ where `index_add_` would add with atomics in an order that varies run to
 run. Sequences longer than 2,048 tokens, and a multiple of it, are routed
 in chunks of 2,048, each with its own capacity, as the reference does.
 
-`loss_fn` waits for the training path (ROADMAP slice 8b-ii) and raises
-`NotImplementedError`."""
+Training: `loss_fn` is the reference's mean next-token cross-entropy in
+fp32 plus the summed MoE balance loss, the padded vocab rows masked to
+-1e30. While grad is enabled each layer runs under `_remat`, the
+reference's `jax.checkpoint` policy as `torch.utils.checkpoint`: "full"
+recomputes the whole layer in the backward, "dots" saves the outputs of
+the matrix products (mm, bmm, addmm: what `checkpoint_dots` saves) and
+recomputes the rest, "none" saves everything. Under `no_grad` (serving)
+nothing is checkpointed. The layers' views are taken with one `unbind` of
+each stacked leaf a forward, so the backward stacks each leaf's layer
+gradients once instead of zero-filling an (n_layers, ...) gradient for
+every layer's `select`."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.multihop import _resolve_device
 from ..kernels.flash_attention import attention_chunked, flash_attention
@@ -99,7 +111,7 @@ class TransformerConfig:
     moe: Optional[MoEConfig] = None
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
-    remat: str = "dots"                     # kept for the training path
+    remat: str = "dots"                     # none | full | dots (training)
     q_chunk: int = 512
     kv_chunk: int = 1024
     norm_eps: float = 1e-6
@@ -415,8 +427,40 @@ def cast_params(params, cfg: TransformerConfig):
     return _map(params, lambda t: t.to(cfg.compute_dtype))
 
 
-def _layer(layers, i: int):
-    return _map(layers, lambda t: t[i])
+def _layers(layers, n_layers: int) -> List[Dict[str, Any]]:
+    """Each layer's params as views of the stacked leaves, one `unbind` a
+    leaf, so autograd stacks the layers' gradients once."""
+    views = _map(layers, lambda t: t.unbind(0))
+    return [_map(views, lambda t: t[i]) for i in range(n_layers)]
+
+
+# the ops whose outputs "dots" saves: the matrix products
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: TransformerConfig):
+    """fn under the config's checkpoint policy while grad is enabled; fn
+    itself under `no_grad` or with remat "none"."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}: none | full | dots")
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -433,19 +477,34 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig):
     cdt = cfg.compute_dtype
     x = _embed(params, tokens, cfg)
     positions = torch.arange(S, device=x.device).expand(B, S)
+
+    def body(x, lp):
+        x, _, a = layer_fn(lp, x, cfg, positions)
+        return x, a
+
+    body = _remat(body, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, _, a = layer_fn(_layer(params["layers"], i), x, cfg, positions)
+    for lp in _layers(params["layers"], cfg.n_layers):
+        x, a = body(x, lp)
         aux = aux + a
     x = rms_norm(x, params["final_norm"].to(cdt), cfg.norm_eps)
     logits = torch.einsum("bsd,vd->bsv", x, params["lm_head"].to(cdt))
     return logits, aux
 
 
-def loss_fn(params, batch, cfg: TransformerConfig):
-    raise NotImplementedError("the training path (loss_fn and "
-                              "flash_attention's backward in training) is "
-                              "not ported yet (ROADMAP queue 1, slice 8b-ii)")
+def loss_fn(params, batch, cfg: TransformerConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy in fp32 (+ the MoE aux). batch:
+    tokens (B, S) and labels (B, S), integer tensors on the params'
+    device."""
+    logits, aux = forward(params, batch["tokens"], cfg)
+    logits = logits.float()
+    if cfg.padded_vocab != cfg.vocab_size:      # mask padded vocab rows
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) \
+            >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    return (logz - gold).mean() + aux
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
@@ -466,9 +525,8 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
                        device=tokens.device)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(S, device=x.device).expand(B, S)
-    for i in range(cfg.n_layers):
-        x, (k, v), _ = layer_fn(_layer(params["layers"], i), x, cfg,
-                                positions)
+    for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
+        x, (k, v), _ = layer_fn(lp, x, cfg, positions)
         cache["k"][i, :, :S] = k.to(cache_dtype)
         cache["v"][i, :, :S] = v.to(cache_dtype)
     # the norm is per token: the last token's alone is the same values
@@ -485,8 +543,8 @@ def decode_step(params, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
     cdt = cfg.compute_dtype
     x = _embed(params, tokens, cfg)
     positions = (pos + torch.arange(S, device=x.device)).expand(B, S)
-    for i in range(cfg.n_layers):
-        x, _, _ = layer_fn(_layer(params["layers"], i), x, cfg, positions,
+    for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
+        x, _, _ = layer_fn(lp, x, cfg, positions,
                            kv_cache=(cache["k"][i], cache["v"][i]),
                            cache_pos=pos)
     x = rms_norm(x[:, -1], params["final_norm"].to(cdt), cfg.norm_eps)

@@ -166,6 +166,34 @@ def test_causal_grads_are_the_forwards_when_s_differs_from_t(b, s, t, h,
                for c, x in zip(custom, ts)) > 0.1
 
 
+@pytest.mark.parametrize("s,t,causal,dtype", [
+    (1100, 1100, True, torch.float32), (1100, 1300, True, torch.float32),
+    (1300, 600, True, torch.float32), (700, 1100, False, torch.float32),
+    (1100, 1100, True, torch.bfloat16)])
+def test_backward_by_query_chunks_is_autograd_through_the_forward(
+        s, t, causal, dtype):
+    """Past one query chunk (Q_CHUNK = 512, ragged last chunks), with the
+    keys a causal chunk sees cut at its last query, S = T, S < T, S > T
+    and no mask: the chunked backward against autograd through the whole
+    `flash_attention_torch` in float32 (1e-5); bfloat16 inputs get bf16
+    gradients of the same float32 sums, so within one bf16 rounding
+    (2^-8 relative) of them."""
+    assert ops.Q_CHUNK == 512 and s > ops.Q_CHUNK
+    q, k, v = qkv(1, s, t, 4, 2, 16, seed=s + t)
+    g = np.random.default_rng(s).normal(size=q.shape).astype(np.float32)
+    ts = [x.to(dtype).requires_grad_() for x in torch_of(q, k, v)]
+    flash_attention(*ts, causal=causal).backward(
+        torch.from_numpy(g).to(dtype))
+    plain = [x.detach().float().requires_grad_() for x in ts]
+    flash_attention_torch(*plain, causal).backward(
+        torch.from_numpy(g).to(dtype).float())
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    for got, want in zip(ts, plain):
+        assert got.grad.dtype == dtype
+        torch.testing.assert_close(got.grad.float(), want.grad, rtol=rtol,
+                                   atol=1e-5)
+
+
 def test_no_launch_on_cpu_and_plain_is_the_forward():
     q, k, v = torch_of(*qkv(2, 64, 64, 4, 2, 32, seed=5))
     before = ops.launches

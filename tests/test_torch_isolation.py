@@ -45,7 +45,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "models.gnn.wigner", "models.gnn.equiformer_v2",
                  "configs.equiformer_v2", "models.bert4rec",
                  "configs.bert4rec", "configs.phi35_moe",
-                 "configs.qwen3_moe"):
+                 "configs.qwen3_moe", "optim", "optim.adamw",
+                 "launch.train"):
         assert "repro_torch." + name in mods, name
     code = (
         "import sys\n"

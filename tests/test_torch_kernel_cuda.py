@@ -731,18 +731,115 @@ def test_gin_sampled_batch_on_the_card_matches_plain(cuda, monkeypatch):
     torch.testing.assert_close(got.cpu(), cpu, rtol=1e-4, atol=1e-4)
 
 
-def test_psw_spmm_rows_refuses_a_gradient_on_the_card(cuda):
-    """The kernel has no backward: an x that needs a gradient raises
-    (GIN's or EquiformerV2's forward under grad on the card would
-    otherwise drop their gradients silently); under no_grad it runs."""
-    lay = ps.prepare_rows([0, 1, 1], [1, 0, 1], 2, device=cuda)
-    x = torch.ones((2, 4), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ps.psw_spmm_rows(lay, x)
-    with torch.no_grad():
-        got = ps.psw_spmm_rows(lay, x)
-    assert torch.equal(got, torch.tensor([[1.0] * 4, [2.0] * 4],
-                                         device=cuda))
+@pytest.mark.parametrize("n_rows,n_src,f", [(3000, 3000, 64),
+                                             (3000, 4000, 6272)])
+def test_psw_spmm_rows_refuses_a_gradient_on_the_card(cuda, n_rows, n_src,
+                                                      f):
+    """The backward on the card: dx = A^T g launches the same kernel over
+    `transpose_rows(layout)`, built on the card (equal to `prepare_rows`
+    of the swapped edges, hub chunks included, and cached), within
+    rowwise 1e-5 of the plain version over that transpose and 1e-4 of
+    the edge oracle, at GIN's width and at EquiformerV2's scatter width
+    (F = 6,272, sources the edge ids: a rectangular layout); a source hub
+    of 300 destinations is a hub row of the transpose."""
+    rng = np.random.default_rng(n_src + f)
+    e = 12000
+    src, dst = rng.integers(0, n_src, e), rng.integers(0, n_rows, e)
+    src[:300], dst[:100] = 5, 7              # hubs of A^T and of A
+    lay = ps.prepare_rows(src, dst, n_rows, device=cuda, n_src=n_src)
+    x = torch.from_numpy(rng.standard_normal((n_src, f)).astype(
+        np.float32)).to(cuda).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((n_rows, f)).astype(
+        np.float32)).to(cuda)
+    before = ps.ops.launches
+    dx, = torch.autograd.grad(ps.psw_spmm_rows(lay, x), x, g)
+    torch.cuda.synchronize()
+    assert ps.ops.launches == before + 2
+    t = ps.transpose_rows(lay)
+    assert lay.cache["transpose"] is t and 5 in t.hub_rows.tolist()
+    want_t = ps.prepare_rows(dst, src, n_src, device=cuda, n_src=n_rows)
+    for name in ("row_ptr", "col", "val", "hub_rows", "hub_ptr", "chunks"):
+        assert torch.equal(getattr(t, name), getattr(want_t, name)), name
+    plain = ps.psw_spmm_rows_torch(t.row_ptr, t.col, t.val, g, t.block)
+    assert_rows_close(dx, plain, 1e-5)
+    oracle = ps.spmm_dense_torch(torch.from_numpy(dst).to(cuda),
+                                 torch.from_numpy(src).to(cuda), g, n_src)
+    assert_rows_close(dx, oracle, 1e-4)
+
+
+def train_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: train_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [train_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def leaf_grads(loss_fn, params):
+    """(loss, gradients in tree order) with every leaf of `params` a leaf
+    that needs a gradient."""
+    leaves = torch.utils._pytree.tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    loss = loss_fn(params)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def test_loss_fn_gradient_on_the_card_matches_cpu(cuda):
+    """granite-3-2b's smoke config (fp32, 2 layers, D 16) at 2 x 600
+    tokens, remat "full": the loss and every gradient on the card (the
+    kernel forward in each layer and its recompute, the backward by
+    query chunks of 512) within 1e-4 of the CPU's."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(configs.get_arch("granite-3-2b").smoke_config,
+                              remat="full")
+    params = tf.init_params(cfg, torch.Generator().manual_seed(29), "cpu")
+    rng = np.random.default_rng(29)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 600)))
+             for k in ("tokens", "labels")}
+    before = fa.ops.launches
+    loss, grads = leaf_grads(lambda p: tf.loss_fn(
+        p, {k: v.to(cuda) for k, v in batch.items()}, cfg),
+        train_tree(params, lambda t: t.to(cuda)))
+    torch.cuda.synchronize()
+    assert fa.ops.launches == before + 2 * cfg.n_layers
+    want, want_g = leaf_grads(lambda p: tf.loss_fn(p, batch, cfg), params)
+    assert torch.isfinite(loss)
+    torch.testing.assert_close(loss.cpu(), want, rtol=1e-4, atol=1e-4)
+    for got, w in zip(grads, want_g):
+        torch.testing.assert_close(got.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+def test_bert4rec_gradient_on_the_card_matches_cpu(cuda):
+    """bert4rec at its full width over a 50,000-item table: the masked-item
+    loss of 64 histories (40 masked slots, vocab chunks of 8,192) and
+    every parameter's gradient on the card within 1e-4 of the CPU's."""
+    from repro_torch.models import bert4rec
+    cfg = bert4rec.Bert4RecConfig(n_items=50_000)
+    params = bert4rec.init_params(torch.Generator().manual_seed(30), cfg,
+                                  "cpu")
+    rng = np.random.default_rng(30)
+    seq = rng.integers(1, cfg.n_items + 1, (64, cfg.seq_len))
+    mpos = np.stack([rng.choice(cfg.seq_len, 40, replace=False)
+                     for _ in range(64)])
+    labels = np.take_along_axis(seq, mpos, 1)
+    labels[:, 35:] = 0
+    np.put_along_axis(seq, mpos, cfg.vocab - 1, 1)
+    batch = {"item_seq": torch.from_numpy(seq),
+             "masked_positions": torch.from_numpy(mpos),
+             "labels": torch.from_numpy(labels)}
+    loss, grads = leaf_grads(lambda p: bert4rec.masked_lm_loss(
+        p, {k: v.to(cuda) for k, v in batch.items()}, cfg, 8192),
+        train_tree(params, lambda t: t.to(cuda)))
+    want, want_g = leaf_grads(lambda p: bert4rec.masked_lm_loss(
+        p, batch, cfg, 8192), params)
+    assert torch.isfinite(loss)
+    torch.testing.assert_close(loss.cpu(), want, rtol=1e-4, atol=1e-4)
+    for got, w in zip(grads, want_g):
+        torch.testing.assert_close(got.cpu(), w, rtol=1e-4, atol=1e-4)
+    assert float(grads[0].abs().sum()) > 0          # item_embed
 
 
 def test_psw_spmm_at_equiformer_width_with_a_hub(cuda):

@@ -368,3 +368,90 @@ def test_prepare_rows_takes_tensors_as_they_are(dtype):
                              device="cpu"))
     with pytest.raises(ValueError):
         prepare_rows(s, d + 300, 300, device="cpu")
+
+
+# (n_rows, n_src, edges, block, hub rows of A, hub rows of A^T, duplicates)
+TRANSPOSE_CASES = [(300, 300, 3000, 128, True, False, 40),
+                   (3000, 500, 9000, 128, True, True, 0),   # rectangular
+                   (50, 4000, 3000, 32, False, True, 25),   # wide, hub in A^T
+                   (7, 3, 0, 128, False, False, 0)]         # no entries
+
+
+def rect_edges(n_rows, n_src, e, seed, hub, t_hub, dup):
+    """Edges from [0, n_src) to [0, n_rows): a destination hub (row 3, 400
+    sources), a source hub (source 5, 400 destinations), repeats."""
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, n_src, e), rng.integers(0, n_rows, e)
+    if hub:
+        src = np.concatenate([src, rng.integers(0, n_src, 400)])
+        dst = np.concatenate([dst, np.full(400, 3)])
+    if t_hub:
+        src = np.concatenate([src, np.full(400, 5)])
+        dst = np.concatenate([dst, rng.integers(0, n_rows, 400)])
+    if dup:
+        src = np.concatenate([src, np.repeat(src[:dup], 2)])
+        dst = np.concatenate([dst, np.repeat(dst[:dup], 2)])
+    return src, dst
+
+
+@pytest.mark.parametrize("n_rows,n_src,e,block,hub,t_hub,dup",
+                         TRANSPOSE_CASES)
+def test_transpose_rows_is_prepare_rows_of_the_swapped_edges(
+        n_rows, n_src, e, block, hub, t_hub, dup):
+    """Bitwise, chunk plan and multiplicities included; built once and
+    cached on the layout."""
+    src, dst = rect_edges(n_rows, n_src, e, 31, hub, t_hub, dup)
+    lay = prepare_rows(src, dst, n_rows, block, device="cpu", n_src=n_src)
+    t = ops.transpose_rows(lay)
+    same_layout(t, prepare_rows(dst, src, n_src, block, device="cpu",
+                                n_src=n_rows))
+    assert t.n_rows == n_src and t.n_src == n_rows
+    assert ops.transpose_rows(lay) is t
+    if t_hub:
+        assert 5 in t.hub_rows.tolist()
+    if dup:
+        assert float(t.val.max()) >= 3
+    same_layout(ops.transpose_rows(t), lay)
+
+
+@pytest.mark.parametrize("n_rows,n_src,e,block,hub,t_hub,dup",
+                         TRANSPOSE_CASES)
+def test_backward_matches_autograd_through_the_dense_product(
+        n_rows, n_src, e, block, hub, t_hub, dup):
+    """dx = A^T g through the Function (the plain version both ways on the
+    CPU) against autograd through the dense A @ x in float64; the values
+    get no gradient, and the transpose the backward used is the cached
+    one."""
+    src, dst = rect_edges(n_rows, n_src, e, 32, hub, t_hub, dup)
+    lay = prepare_rows(src, dst, n_rows, block, device="cpu", n_src=n_src)
+    rng = np.random.default_rng(33)
+    x = torch.from_numpy(rng.standard_normal((n_src, 24)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((n_rows, 24)).astype(np.float32))
+    x.requires_grad_()
+    out = psw_spmm_rows(lay, x)
+    assert out.requires_grad and not lay.val.requires_grad
+    dx, = torch.autograd.grad(out, x, g)
+    dense = torch.zeros((n_rows, n_src), dtype=torch.float64)
+    dense.index_put_((torch.from_numpy(dst), torch.from_numpy(src)),
+                     torch.ones(len(src), dtype=torch.float64),
+                     accumulate=True)
+    x64 = x.detach().double().requires_grad_()
+    want, = torch.autograd.grad(dense @ x64, x64, g.double())
+    assert_rows_close(dx.numpy(), want.numpy())
+    assert "transpose" in lay.cache
+    # a second backward reuses the transpose
+    t = lay.cache["transpose"]
+    torch.autograd.grad(psw_spmm_rows(lay, x).sum(), x)
+    assert lay.cache["transpose"] is t
+
+
+def test_gradcheck_in_float64_of_the_plain_path():
+    """The Function's backward is the adjoint of its forward
+    (torch.autograd.gradcheck, which the plain version runs in float64
+    where the wrapper takes float32 only)."""
+    src, dst = rect_edges(20, 30, 80, 34, False, False, 5)
+    lay = prepare_rows(src, dst, 20, 8, device="cpu", n_src=30)
+    x = torch.from_numpy(np.random.default_rng(35).standard_normal(
+        (30, 3))).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda x: ops._Rows.apply(x, lay), (x,))

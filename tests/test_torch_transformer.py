@@ -162,7 +162,10 @@ def test_registry_lists_every_arch_and_refuses_unported_ones():
 
 def test_moe_and_training_raise():
     """MoE layers run (init, forward with its balance loss, prefill, a
-    decode step); training still refuses, naming slice 8b."""
+    decode step), and so does training: `loss_fn` of the dense and the MoE
+    config is finite, with a finite gradient for every leaf and a router
+    gradient that is not 0. (The port's loss and
+    gradient against the reference's: tests/test_torch_train.py.)"""
     cfg = dataclasses.replace(configs.get_arch("granite-3-2b").smoke_config,
                               moe=tf.MoEConfig(4, 2, 64))
     assert cfg.n_params == ref_tf.TransformerConfig(
@@ -178,8 +181,18 @@ def test_moe_and_training_raise():
         step, _ = tf.decode_step(p, cache, last.argmax(-1)[:, None], 8, cfg)
     assert logits.shape == (2, 8, cfg.padded_vocab) and float(aux) > 0
     assert torch.isfinite(logits).all() and torch.isfinite(step).all()
-    with pytest.raises(NotImplementedError, match="slice 8b"):
-        tf.loss_fn({}, {}, configs.get_arch("granite-3-2b").smoke_config)
+    labels = torch.from_numpy(tokens(cfg, 2, 8, seed=1))
+    for c in (cfg, configs.get_arch("granite-3-2b").smoke_config):
+        q = tf.init_params(c, device="cpu")
+        names, leaves = zip(*convert._flatten(q))
+        for t in leaves:
+            t.requires_grad_()
+        loss = tf.loss_fn(q, {"tokens": toks, "labels": labels}, c)
+        grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        assert loss.dim() == 0 and torch.isfinite(loss)
+        assert all(torch.isfinite(g).all() for g in grads.values())
+        if c.moe is not None:
+            assert float(grads["layers.mlp.router"].abs().sum()) > 0
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "qwen3-moe-235b-a22b"])
