@@ -14,7 +14,8 @@ disk tier, runs first, right after the build, while the process's peak RSS
 is still its baseline; phases 0-8 follow, then phase 10, the service and
 shard tiers, phase 11, GNN serving on sampled minibatches, phase 12,
 EquiformerV2 serving from phase 11's sampler, phase 13, MoE serving,
-phase 14, bert4rec serving, and phase 15, training, runs last:
+phase 14, bert4rec serving, phase 15, training, and phase 16, the cell
+steps of launch/steps.py, runs last:
 
   9. the disk tier at benchmarks/bench_disk.py's scale-1.0 configuration
      (a 96 MB data budget; --disk-budget-mb sets it, and with it the edge
@@ -74,7 +75,9 @@ phase 14, bert4rec serving, and phase 15, training, runs last:
      `psw_spmm_edges` over a second live `LSMTree` (32,768 vertices,
      458,752 power-law edges, part still buffered; F = 128) and a
      Cora-shaped graph (2,708 vertices, 10,556 edges, F = 1,433), each
-     against the edge oracle; then each kernel against its plain version,
+     against the edge oracle; then each kernel against its plain version
+     (psw_spmm's computed in float64, here and in every later phase: the
+     float32 one adds a hub row's terms in atomic order, which varies),
      with times, bound and library yardstick (psw_spmm on its prebuilt row
      layout, with `prepare_rows`, the tile compaction and the tile API
      timed on their own);
@@ -192,8 +195,7 @@ phase 14, bert4rec serving, and phase 15, training, runs last:
      and both requests timed with CUDA events, the scoring pass against
      its bound. Gates: 8 rows within 1e-4 of the CPU's, the candidates'
      scores within 1e-5 of the full scores at their columns, no NaN in a
-     row with an item. serve_bulk (B = 262,144) needs a chunked top-k
-     serve step and is left for later.
+     row with an item. serve_bulk (B = 262,144) is phase 16a.
  15. training (`phase_train`), each model freed before the next: (a)
      granite-3-2b at its full config (fp32 master params and AdamW state,
      bf16 compute, remat "full"), `launch/train.py::train_step` for 4
@@ -221,6 +223,35 @@ phase 14, bert4rec serving, and phase 15, training, runs last:
      `prepare_rows` of the swapped edges, the kernel within rowwise 1e-5
      of its plain version, with times, the bytes bound and the
      `torch.sparse.mm` yardstick.
+ 16. the cells of launch/steps.py (`phase_cells`), each step through
+     `build_cell` and its inputs from `materialize` (random weights from
+     --seed): (a) bert4rec serve_bulk at full size, 262,144 histories of
+     200 slots over all 1,000,192 rows, top 100 in request chunks of
+     16,384 and vocab chunks of 65,536; gate: 512 sampled requests' ids
+     and values within 1e-5 of `torch.topk` over `score_all_items` (a tie
+     may swap ids); (b) bert4rec train_batch cut to 16,384 sequences, 8
+     microbatches by the cell's rule, one step; gates: a finite loss, the
+     table's gradient not 0, and on a cut that fits one pass (100,000
+     items, 20 slots, 4 masked) the accumulated step against one pass:
+     the gradient norms before the clip within 1e-4 relative, the clipped
+     gradients within rtol 1e-4, atol 1e-5 x their largest |g|; (c)
+     gin-tu x ogb_products at full size (2,449,029 nodes, 61,859,140
+     power-law edges from --seed, 100 features, 47 classes, 16 edge
+     chunks), 2 train steps; gate: 10 psw_spmm launches a step (5
+     forward, 5 transpose); then psw_spmm and its transpose on the step's
+     row layout at F = 64 (a 2,445,979-entry hub row), each within
+     rowwise 1e-5 of its plain version in float64;
+     (d) granite-3-2b x train_4k at full depth cut to B = 8, 2
+     microbatches of 4 x 4,096 by the cell's rule, one step; gates: 160
+     flash_attention launches, and on a 2-layer fp32 cut (2 microbatches
+     of 2 x 2,048) the accumulated step against one pass as in (b); (e) prefill_32k cut to B = 2 (40 launches) and decode_32k
+     cut to B = 8 at a 32,768-slot cache, 4 tokens; (f) a one-rank NCCL
+     process group: `pagerank_device(group=...)` bitwise the group-less
+     one in both modes on bench_shard's 3M power-law edges, and
+     `compressed_psum_tree` over (d)'s gradient tree bitwise the local
+     int8 round trip; (g) one dry-run cell (gin-tu x full_graph_sm, the
+     16 x 16 mesh of a fake world of 256) in a subprocess started first,
+     status "ok".
 
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 1-2 for frontier_expand, phase 6's aggregation calls for
@@ -239,7 +270,9 @@ the `equiformer path:` line and as `equiformer_path_launches`; phase 13's
 prefill) on the `moe path:` line and as `moe_path_launches`; phase 15's
 (flash_attention in (a) and (b), psw_spmm in (d) and (e), each zeroed
 before its own steps) on the `train path:` line and as
-`train_path_launches`. Any failed check exits non-zero. The
+`train_path_launches`; phase 16's (flash_attention in 16d's step and 16e's
+prefill, psw_spmm in 16c's two steps) on the `cell path:` line and as
+`cell_path_launches`. Any failed check exits non-zero. The
 second-to-last line is the card's name and power limit from nvidia-smi;
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -830,26 +863,47 @@ def segment_ell_vs_plain(torch, se, se_kernel, ell, reps: int) -> dict:
             "bytes_once": bytes_once, "gather_bytes": gather_bytes}
 
 
+def plain_f64(torch, ps, lay, x):
+    """The plain version over x in float64, by column slabs that keep its
+    gathered rows under ~2 GB: the sums the kernel is held to. In float32
+    the plain version adds a row's terms in `index_add_`'s atomic order,
+    which differs from run to run; at a 2.4M-entry hub row that rounding
+    alone reached 1.12x the rowwise tolerance against the kernel in one
+    run and 0.66x in another."""
+    n, F = lay.n_rows, x.shape[1]
+    want = torch.empty((n, F), dtype=torch.float64, device=x.device)
+    w = max(1, min(F, (2 << 30) // max(1, lay.nnz * 8)))
+    for a in range(0, F, w):
+        want[:, a:a + w] = ps.psw_spmm_rows_torch(
+            lay.row_ptr, lay.col, lay.val, x[:, a:a + w].double(), lay.block)
+    return want
+
+
 def psw_spmm_layout_vs_plain(torch, ps, ps_kernel, lay, x, reps: int):
     """The row-gather kernel on a prebuilt row layout against the plain
-    version (rowwise 1e-5, repeat runs bitwise), both timed. Returns (the
-    kernel's output, the layout's shape, the error and the times)."""
+    version in float64 (rowwise 1e-5, repeat runs bitwise), with the
+    float32 plain version's own error beside it, both versions timed.
+    Returns (the kernel's output, the layout's shape, the errors and the
+    times)."""
     n, F = lay.n_rows, x.shape[1]
     C = int(lay.chunks.shape[0])
     out = torch.empty((n, F), dtype=torch.float32, device=x.device)
     scratch = torch.empty((C, F), dtype=torch.float32, device=x.device)
     ps_kernel.launch(lay, x, out, scratch)
+    want = plain_f64(torch, ps, lay, x)
+    torch.cuda.synchronize()
+    ok, err, ratio = row_tolerance(out, want, 1e-5, 1e-5)
+    check(ok, f"psw_spmm kernel vs plain version (float64) at F={F}: max "
+              f"abs err {err}, {ratio:.2f}x the tolerance")
     plain = ps.psw_spmm_rows_torch(lay.row_ptr, lay.col, lay.val, x,
                                    lay.block)
-    torch.cuda.synchronize()
-    ok, err, ratio = row_tolerance(out, plain, 1e-5, 1e-5)
-    check(ok, f"psw_spmm kernel vs plain version at F={F}: max abs err "
-              f"{err}, {ratio:.2f}x the tolerance")
+    _, plain_err, plain_ratio = row_tolerance(plain, want, 1e-5, 1e-5)
+    del want, plain
     again = torch.empty_like(out)
     ps_kernel.launch(lay, x, again, scratch)
     torch.cuda.synchronize()
     check(torch.equal(out, again), "psw_spmm kernel: a second run differs")
-    del plain, again
+    del again
     ms = cuda_ms(torch, lambda: ps_kernel.launch(lay, x, out, scratch), reps)
     plain_ms = cuda_ms(torch, lambda: ps.psw_spmm_rows_torch(
         lay.row_ptr, lay.col, lay.val, x, lay.block), max(1, reps // 4))
@@ -857,7 +911,9 @@ def psw_spmm_layout_vs_plain(torch, ps, ps_kernel, lay, x, reps: int):
         "n": n, "nnz": lay.nnz, "F": F,
         "hub_rows": int(lay.hub_rows.shape[0]), "chunks": C,
         "longest_row": int((lay.row_ptr[1:] - lay.row_ptr[:-1]).max()),
-        "max_abs_err": err, "err_over_tolerance": ratio, "ms": ms,
+        "max_abs_err": err, "err_over_tolerance": ratio,
+        "plain_max_abs_err": plain_err,
+        "plain_err_over_tolerance": plain_ratio, "ms": ms,
         "plain_ms": plain_ms}
 
 
@@ -3381,11 +3437,13 @@ def train_equiformer(torch, ps, sub, n: int, dev, args) -> dict:
     return res
 
 
-def transpose_vs_plain(torch, ps, ps_kernel, lay, g, reps: int) -> dict:
+def transpose_vs_plain(torch, ps, ps_kernel, lay, g, reps: int,
+                       tag: str = "15f") -> dict:
     """psw_spmm's backward on the card: A^T g over `transpose_rows(lay)`
     (built on the card, timed on its own; equal to `prepare_rows` of the
     swapped edges) against its plain version (rowwise 1e-5), with the
-    bytes-read-once bound and `torch.sparse.mm` over the same CSR."""
+    bytes-read-once bound and `torch.sparse.mm` over the same CSR. `tag`
+    names the phase in a failure."""
     t0 = time.perf_counter()
     lay.cache.pop("transpose", None)
     tr = ps.transpose_rows(lay)
@@ -3401,7 +3459,8 @@ def transpose_vs_plain(torch, ps, ps_kernel, lay, g, reps: int) -> dict:
                            n_src=lay.n_rows)
     same = all(torch.equal(getattr(tr, f), getattr(want, f)) for f in
                ("row_ptr", "col", "val", "hub_rows", "hub_ptr", "chunks"))
-    check(same, "15f: transpose_rows != prepare_rows of the swapped edges")
+    check(same, f"{tag}: transpose_rows != prepare_rows of the swapped "
+                "edges")
     del want, rows, cols
     out, res = psw_spmm_layout_vs_plain(torch, ps, ps_kernel, tr, g, reps)
     n, F = tr.n_rows, g.shape[1]
@@ -3412,7 +3471,7 @@ def transpose_vs_plain(torch, ps, ps_kernel, lay, g, reps: int) -> dict:
     lib = torch.sparse.mm(adj, g)
     torch.cuda.synchronize()
     lib_ok, lib_err, _ = row_tolerance(lib, out, 1e-4, 1e-4)
-    check(lib_ok, f"15f: torch.sparse.mm vs the transpose: {lib_err}")
+    check(lib_ok, f"{tag}: torch.sparse.mm vs the transpose: {lib_err}")
     del lib, out
     library_ms = cuda_ms(torch, lambda: torch.sparse.mm(adj, g), reps)
     del adj
@@ -3479,6 +3538,491 @@ def phase_train(torch, ps, ps_kernel, subs, n: int, dev, args,
         f"{res['phi_moe']['launches']} flash_attention launches, "
         f"{res['gin']['launches']} + {res['equiformer']['launches']} "
         f"psw_spmm launches; " + json.dumps({"phase_s": res["phase_s"]}))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the cell steps of launch/steps.py on the card
+# ---------------------------------------------------------------------------
+CELL_REC_TRAIN_BATCH = 16_384          # train_batch's 65,536 cut, accum 8
+CELL_LM_TRAIN_BATCH = 8                # train_4k's 256 cut, accum 2
+CELL_PREFILL_BATCH, CELL_DECODE_BATCH = 2, 8   # prefill 32 / decode 128 cut
+CELL_SAMPLE = 512                      # serve_bulk requests held to topk
+
+
+def cell_rules():
+    from repro_torch.sharding import DEFAULT_RULES, ShardingRules
+    return ShardingRules(rules=dict(DEFAULT_RULES), mesh=None)
+
+
+def cut_cell(spec, shape: str, config=None, **dims):
+    """The spec with one cell's dims overridden (and its config)."""
+    import dataclasses
+    cell = spec.shapes[shape]
+    return dataclasses.replace(
+        spec, config=spec.config if config is None else config,
+        shapes={shape: dataclasses.replace(cell,
+                                           dims={**cell.dims, **dims})})
+
+
+def topk_swaps(v, i, v_ref, i_ref, tol: float) -> int:
+    """Values within tol; ids equal but where two scores tie within float
+    rounding and swap (the reference's id then sits elsewhere in the row
+    with its value, or fell off the end beside an equal last value).
+    Returns the swaps; fails on any other difference."""
+    check(np.allclose(v, v_ref, rtol=tol, atol=tol),
+          f"top-k values: max abs err {np.abs(v - v_ref).max()}")
+    rows, cols = np.nonzero(i != i_ref)
+    for r, c in zip(rows, cols):
+        at = np.nonzero(i[r] == i_ref[r, c])[0]
+        got = v[r, at[0]] if at.size else v[r, -1]
+        check(abs(got - v_ref[r, c]) <= tol,
+              f"top-k ids differ beyond a tie at row {r}, slot {c}")
+    return len(rows)
+
+
+def cell_serve_bulk(torch, dev, args) -> dict:
+    """16a: bert4rec serve_bulk through `build_cell` at full size: 262,144
+    histories of 200 slots, every one of the 1,000,192 rows, top 100, in
+    request chunks of 16,384 and vocab chunks of 65,536. Gates: (B, 100)
+    finite values in descending order; for 512 sampled requests the ids
+    and values of `torch.topk` over `score_all_items` (ids < vocab) within
+    1e-5 (a tie may swap ids)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import bert4rec as b4r
+    spec = get_arch("bert4rec")
+    cfg = spec.config
+    plan = steps.build_cell(spec, "serve_bulk", cell_rules(), 1)
+    B = spec.shapes["serve_bulk"].dims["batch"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 90)
+    params = b4r.init_params(gen, cfg, dev)
+    seq = torch.from_numpy(history_bags(B, cfg.seq_len, cfg.n_items,
+                                        args.seed + 91)[0]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    v, i = plan.fn(params, seq)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(tuple(v.shape) == (B, 100) and tuple(i.shape) == (B, 100),
+          f"16a: shapes {tuple(v.shape)}, {tuple(i.shape)}")
+    check(bool(torch.isfinite(v).all()) and bool((v[:, 1:] <= v[:, :-1])
+                                                 .all()),
+          "16a: top-100 values not finite or not descending")
+    sample = torch.from_numpy(np.sort(np.random.default_rng(
+        args.seed + 92).choice(B, CELL_SAMPLE, replace=False))).to(dev)
+    with torch.no_grad():
+        want = torch.topk(b4r.score_all_items(params, seq[sample], cfg)[
+            :, :cfg.vocab], 100, dim=-1)
+    swaps = topk_swaps(v[sample].cpu().numpy(), i[sample].cpu().numpy(),
+                       want.values.cpu().numpy(),
+                       want.indices.int().cpu().numpy(), 1e-5)
+    res = {"requests": B, "s": secs, "requests_per_s": B / secs,
+           "sample": CELL_SAMPLE, "sample_id_swaps": swaps,
+           "sample_max_abs_err": float((v[sample] - want.values).abs()
+                                       .max()),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del params, seq, v, i, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def accumulated_vs_one_pass(torch, steps, plan, params, opt, batch, loss_of,
+                            cast=None) -> dict:
+    """The plan's step (its microbatches) against `_accumulated_step` with
+    one microbatch on copies of the same params. The gradient norms before
+    the clip within 1e-4 relative: the clip (to norm 1) would hide a fault
+    that only scales the gradient, such as summing microbatches where they
+    are averaged. The clipped gradients (each first moment over 1 - b1)
+    within rtol 1e-4 and atol 1e-5 x the largest |g| of the one pass.
+    Returns the norms, the largest |g| and the errors."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.optim import AdamWConfig, adamw_init
+    p1 = pytree.tree_map(lambda t: t.clone(), params)
+    o1 = adamw_init(p1)
+    _, _, met = plan.fn(params, opt, batch)
+    _, _, met1 = steps._accumulated_step(p1, o1, batch, 1, loss_of,
+                                         AdamWConfig(), cast)
+    norm, norm1 = float(met["grad_norm"]), float(met1["grad_norm"])
+    norm_err = abs(norm - norm1) / norm1
+    check(norm_err <= 1e-4, f"accumulated gradient norm {norm} vs one pass "
+                            f"{norm1}")
+    b1 = AdamWConfig().b1
+    ga = [m / (1 - b1) for m in pytree.tree_leaves(opt["m"])]
+    g1 = [m / (1 - b1) for m in pytree.tree_leaves(o1["m"])]
+    gmax = max(float(b.abs().max()) for b in g1)
+    err = max(float((a - b).abs().max()) for a, b in zip(ga, g1))
+    ratio = max(float(((a - b).abs() / (1e-4 * b.abs() + 1e-5 * gmax))
+                      .max()) for a, b in zip(ga, g1))
+    check(ratio <= 1.0, f"accumulated gradient vs one pass: max abs err "
+                        f"{err}, largest |g| {gmax}, {ratio:.2f}x the "
+                        f"tolerance")
+    return {"grad_norm": norm, "one_pass_grad_norm": norm1,
+            "grad_norm_rel_err": norm_err, "grad_max_abs": gmax,
+            "grad_max_abs_err": err, "err_over_tolerance": ratio}
+
+
+def cell_rec_train(torch, dev, args) -> dict:
+    """16b: bert4rec train_batch cut to B = 16,384, which the cell's rule
+    runs as 8 microbatches of 2,048 (40 masked slots, vocab chunks of
+    8,192): one step at the full config. Gates: a finite loss, the item
+    table's gradient not 0; on a cut that fits one pass (100,000 items,
+    20 slots, 4 masked a sequence, all labelled) the 8-microbatch gradient
+    against one pass over the same rows (`accumulated_vs_one_pass`)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import bert4rec as b4r
+    spec = cut_cell(get_arch("bert4rec"), "train_batch",
+                    batch=CELL_REC_TRAIN_BATCH)
+    plan = steps.build_cell(spec, "train_batch", cell_rules(), 1)
+    check(plan.meta["grad_accum"] == 8,
+          f"16b: {plan.meta['grad_accum']} microbatches, expected 8")
+    gen = torch.Generator()
+    gen.manual_seed(args.seed + 93)
+    params, opt, batch = steps.materialize(plan, dev, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, met = plan.fn(params, opt, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    loss = float(met["loss"])
+    check(np.isfinite(loss), f"16b: loss {loss}")
+    check(float(opt["m"]["item_embed"].abs().sum()) > 0,
+          "16b: the item table's gradient is 0")
+    res = {"sequences": CELL_REC_TRAIN_BATCH, "microbatches": 8,
+           "step_s": secs, "loss": loss,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del params, opt, batch
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(spec.config, n_items=100_000, seq_len=20)
+    cut = cut_cell(spec, "train_batch", config=cfg,
+                   batch=CELL_REC_TRAIN_BATCH)
+    plan = steps.build_cell(cut, "train_batch", cell_rules(), 1)
+    params, opt, batch = steps.materialize(plan, dev, gen)
+    batch = {**batch, "masked_positions": batch["masked_positions"][
+        :, :4].contiguous(), "labels": batch["labels"][:, :4].contiguous()}
+    res["cut_vs_one_pass"] = accumulated_vs_one_pass(
+        torch, steps, plan, params, opt, batch,
+        lambda p, mb: b4r.masked_lm_loss(p, mb, cfg, vocab_chunk=8192))
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def cell_gin_products(torch, ps, ps_kernel, dev, args) -> dict:
+    """16c: gin-tu x ogb_products through `build_cell` at full size:
+    2,449,029 nodes (padded to 2,449,408) and 61,859,140 power-law edges
+    from --seed (padded to 61,865,984, masked), 100 features, 47 classes,
+    16 edge chunks (no effect on the row gather); 2 train steps. Gates:
+    finite losses, 10 psw_spmm launches a step (5 forward, 5 transpose).
+    Then the kernel at the cell's shape: the step's row layout (the
+    batch's live edges, as GIN builds it) at F = 64, forward and
+    transpose, each against its plain version (rowwise 1e-5), with their
+    bounds and torch.sparse.mm."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    spec = get_arch("gin-tu")
+    dims = spec.shapes["ogb_products"].dims
+    plan = steps.build_cell(spec, "ogb_products", cell_rules(), 1)
+    gen = torch.Generator()
+    gen.manual_seed(args.seed + 94)
+    params, opt, batch = steps.materialize(plan, dev, gen)
+    src, dst = power_law_graph(dims["n_nodes"], dims["n_edges"],
+                               seed=args.seed + 95)
+    e = len(src)
+    batch["src"][:e] = torch.from_numpy(src.astype(np.int32)).to(dev)
+    batch["dst"][:e] = torch.from_numpy(dst.astype(np.int32)).to(dev)
+    del src, dst
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses = [], []
+    ps.ops.launches = 0                        # the cell path (16c)...
+    for _ in range(2):
+        t0 = time.perf_counter()
+        params, opt, met = plan.fn(params, opt, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+    launches = ps.ops.launches                 # ...ends here
+    n_layers = len(params["layers"])
+    check(all(np.isfinite(losses)), f"16c: losses {losses}")
+    check(launches == 2 * 2 * n_layers,
+          f"16c: {launches} psw_spmm launches in 2 steps, expected "
+          f"{4 * n_layers}")
+    res = {"nodes": dims["n_nodes"], "edges": e, "padded": [
+        plan.meta["n_nodes"], plan.meta["n_edges"]], "step_s": secs,
+           "losses": losses, "launches": launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del params, opt
+    torch.cuda.empty_cache()
+    live = batch["edge_mask"]
+    n = batch["x"].shape[0]
+    F = spec.config.d_hidden
+    edges = (batch["src"][live], batch["dst"][live],
+             randn(torch, (n, F), dev, args.seed + 97))
+    del batch
+    res["psw_spmm"], lay, out = psw_spmm_rows_vs_plain(torch, ps, ps_kernel,
+                                                       edges, args.reps)
+    del edges, out
+    g = randn(torch, (n, F), dev, args.seed + 98)
+    res["transpose"] = transpose_vs_plain(torch, ps, ps_kernel, lay, g,
+                                          args.reps, "16c")
+    del lay, g
+    torch.cuda.empty_cache()
+    return res
+
+
+def cell_lm(torch, dev, args) -> tuple:
+    """16d: granite-3-2b x train_4k at full depth cut to B = 8, which the
+    cell's rule splits into 2 microbatches of 4 x 4,096; one step (fp32
+    master params, bf16 compute, remat "full"). Gates: a finite loss, 160
+    flash_attention launches (2 microbatches x 40 layers x forward and
+    recompute); on a 2-layer fp32 cut at full width (4 x 2,048 tokens, 2
+    microbatches) the accumulated gradient against one pass
+    (`accumulated_vs_one_pass`). 16e:
+    prefill_32k cut to B = 2 (2 x 32,768 tokens, 40 launches) and
+    decode_32k cut to B = 8 at a 32,768-slot cache (random bf16 entries),
+    through the cells' functions: finite logits. Returns (the result, the
+    16d step's clipped gradient tree for 16f)."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    full = get_arch("granite-3-2b")
+    cfg = full.config
+    spec = cut_cell(full, "train_4k", batch=CELL_LM_TRAIN_BATCH)
+    plan = steps.build_cell(spec, "train_4k", cell_rules(), 1)
+    check(plan.meta["grad_accum"] == 2,
+          f"16d: {plan.meta['grad_accum']} microbatches, expected 2")
+    gen = torch.Generator()
+    gen.manual_seed(args.seed + 96)
+    params, opt, batch = steps.materialize(plan, dev, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.launches = 0                        # the cell path (16d)...
+    t0 = time.perf_counter()
+    params, opt, met = plan.fn(params, opt, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = fa_ops.launches                 # ...ends here
+    loss = float(met["loss"])
+    tokens = CELL_LM_TRAIN_BATCH * 4096
+    check(np.isfinite(loss), f"16d: loss {loss}")
+    check(launches == 2 * 2 * cfg.n_layers,
+          f"16d: {launches} flash_attention launches, expected "
+          f"{4 * cfg.n_layers}")
+    res = {"train": {"tokens": tokens, "microbatches": 2, "step_s": secs,
+                     "tokens_per_s": tokens / secs, "loss": loss,
+                     "grad_norm": float(met["grad_norm"]),
+                     "launches": launches,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}}
+    grads = pytree.tree_map(lambda m: m.div_(0.1), opt["m"])   # 1 - b1
+    del opt, batch
+    torch.cuda.empty_cache()
+
+    # the 2-layer fp32 cut: 2 microbatches against one pass
+    c2 = dataclasses.replace(cfg, n_layers=2, compute_dtype=torch.float32)
+    cut = cut_cell(full, "train_4k", config=c2, batch=4, seq=2048)
+    rule = steps.lm_grad_accum
+    steps.lm_grad_accum = lambda *a, **k: 2    # the cut's rule would say 1
+    try:
+        plan_c = steps.build_cell(cut, "train_4k", cell_rules(), 1)
+    finally:
+        steps.lm_grad_accum = rule
+    p2, o2, b2 = steps.materialize(plan_c, dev, gen)
+    n0 = fa_ops.launches
+    res["train"]["fp32_cut_vs_one_pass"] = accumulated_vs_one_pass(
+        torch, steps, plan_c, p2, o2, b2,
+        lambda p, mb: tf.loss_fn(p, mb, c2))
+    res["train"]["fp32_cut_launches"] = fa_ops.launches - n0
+    del p2, o2, b2
+    torch.cuda.empty_cache()
+
+    # 16e: prefill and decode through the cells' functions
+    S = full.shapes["prefill_32k"].dims["seq"]
+    pplan = steps.build_cell(cut_cell(full, "prefill_32k",
+                                      batch=CELL_PREFILL_BATCH),
+                             "prefill_32k", cell_rules(), 1)
+    tokens = torch.randint(0, cfg.vocab_size, (CELL_PREFILL_BATCH, S),
+                           generator=gen).to(dev)
+    fa_ops.launches = 0                        # the cell path (16e)...
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, cache = pplan.fn(params, tokens)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    p_launches = fa_ops.launches               # ...ends here
+    check(bool(torch.isfinite(logits.float()).all())
+          and tuple(cache["k"].shape) == (cfg.n_layers, CELL_PREFILL_BATCH,
+                                          S, cfg.n_kv_heads, cfg.head_dim),
+          "16e: prefill logits not finite or a bad cache")
+    check(p_launches == cfg.n_layers,
+          f"16e: {p_launches} flash_attention launches in the prefill")
+    del logits, cache, tokens
+    torch.cuda.empty_cache()
+    dplan = steps.build_cell(cut_cell(full, "decode_32k",
+                                      batch=CELL_DECODE_BATCH),
+                             "decode_32k", cell_rules(), 1)
+    _, cache, tok, pos = steps.materialize(dplan, dev, gen)
+    torch.cuda.empty_cache()
+    times = []
+    with torch.no_grad():
+        for p in range(pos - 3, pos + 1):
+            t0 = time.perf_counter()
+            logits, cache = dplan.fn(params, cache, tok, p)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            tok = logits.argmax(-1, keepdim=True).int()
+    check(bool(torch.isfinite(logits.float()).all()),
+          "16e: decode logits not finite")
+    res["serve"] = {"prefill_tokens": CELL_PREFILL_BATCH * S,
+                    "prefill_s": prefill_s, "prefill_launches": p_launches,
+                    "decode_batch": CELL_DECODE_BATCH, "cache_slots": S,
+                    "decode_ms_a_token": [t * 1e3 for t in times]}
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return res, grads
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def cell_collectives(torch, core, dev, args, grads) -> dict:
+    """16f: a one-rank NCCL process group on the card. `pagerank_device`
+    with the group (the ranked sweep: one all_to_all_single of the window
+    rows, or one all_gather_into_tensor) bitwise equal to the group-less
+    one in both modes, on a DeviceGraph of bench_shard's 3M power-law
+    edges (200,000 ids, 8 intervals); `compressed_psum_tree` over 16d's
+    gradient tree bitwise the local ef_compress / ef_decompress round trip
+    (values and residuals), with the bytes its all-reduces take (the int8
+    payloads widened to int32, 4 bytes a value, and one fp32 scale a leaf)
+    and its ms: on one rank NCCL moves nothing, so the time is the
+    quantization and the rank's own reduce."""
+    import torch.distributed as dist
+    from repro_torch.optim import (compressed_psum_tree, ef_compress,
+                                   ef_decompress)
+    from torch.utils import _pytree as pytree
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        pg = dist.group.WORLD
+        n = args.service_vertices
+        src, dst = power_law_graph(n, args.service_edges, seed=8)
+        g = core.GraphPAL.from_edges(src, dst, n_partitions=8, max_id=n - 1)
+        dg = core.build_device_graph(g, device=dev)
+        mine = dg.shard(0, 1)
+        res = {"edges": int(dg.n_edges)}
+        for mode in PR_MODES:
+            one = core.pagerank_device(dg, mode=mode)
+            ranked = core.pagerank_device(mine, mode=mode, group=pg)
+            check(torch.equal(one, ranked),
+                  f"16f: ranked PageRank ({mode}) differs from one device")
+            res[mode + "_ms"] = cuda_ms(torch, lambda: core.pagerank_device(
+                mine, mode=mode, group=pg), 3)
+        del dg, mine, g
+        leaves = pytree.tree_leaves(grads)
+        zeros = pytree.tree_map(torch.zeros_like, grads)
+        mean, new_r = compressed_psum_tree(grads, zeros, pg)
+        for gl, rl, ml, nl in zip(leaves, pytree.tree_leaves(zeros),
+                                  pytree.tree_leaves(mean),
+                                  pytree.tree_leaves(new_r)):
+            q, s, nr = ef_compress(gl, rl)
+            check(torch.equal(ml, ef_decompress(q, s))
+                  and torch.equal(nl, nr),
+                  "16f: compressed_psum_tree on one rank differs from the "
+                  "local round trip")
+        del mean, new_r, q, s, nr
+        res["psum_leaves"] = len(leaves)
+        res["psum_values"] = sum(t.numel() for t in leaves)
+        res["psum_payload_bytes"] = 4 * res["psum_values"]     # int32
+        res["psum_scale_bytes"] = 4 * len(leaves)
+        res["psum_ms"] = cuda_ms(torch, lambda: compressed_psum_tree(
+            grads, zeros, pg), 2)
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def start_dryrun():
+    """16g's subprocess, started first: one dry-run cell (gin-tu x
+    full_graph_sm on the single-pod mesh of a fake world of 256) in its
+    own interpreter on the host."""
+    out = os.path.join(ROOT, "build", "dryrun_phase")
+    os.makedirs(out, exist_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "gin-tu", "--shape", "full_graph_sm", "--mesh", "single", "--out",
+           out]
+    env = {**os.environ, "PYTHONPATH": SRC}
+    return out, subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def finish_dryrun(out, proc) -> dict:
+    import shutil
+    try:
+        _, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    path = os.path.join(out, "gin-tu__full_graph_sm__single.json")
+    check(proc.returncode == 0 and os.path.exists(path),
+          f"16g: the dry-run failed: {err[-2000:]}")
+    with open(path) as fh:
+        rec = json.load(fh)
+    shutil.rmtree(out, ignore_errors=True)
+    check(rec.get("status") == "ok", f"16g: dry-run status {rec}")
+    return {k: rec[k] for k in ("status", "n_devices", "compile_s",
+                                "flops_per_device",
+                                "collective_bytes_by_kind")}
+
+
+def phase_cells(torch, core, ps, ps_kernel, dev, args, clock) -> dict:
+    """Phase 16, the cells of launch/steps.py on the card: 16g's dry-run
+    starts in a subprocess first and is read last; 16a bert4rec
+    serve_bulk, 16b bert4rec train_batch, 16c gin-tu x ogb_products, 16d-e
+    granite-3-2b train_4k, prefill_32k and decode_32k, 16f a one-rank NCCL
+    group (ranked PSW, the compressed all-reduce)."""
+    t_phase = time.perf_counter()
+    log("phase 16 the cells of launch/steps.py on the card")
+    torch.cuda.empty_cache()
+    out, proc = start_dryrun()
+    try:
+        res = {"serve_bulk": cell_serve_bulk(torch, dev, args)}
+        log("  16a bert4rec serve_bulk: " + json.dumps(res["serve_bulk"]))
+        res["rec_train"] = cell_rec_train(torch, dev, args)
+        log("  16b bert4rec train_batch: " + json.dumps(res["rec_train"]))
+        res["gin"] = cell_gin_products(torch, ps, ps_kernel, dev, args)
+        log("  16c gin-tu ogb_products: " + json.dumps(res["gin"]))
+        res["lm"], grads = cell_lm(torch, dev, args)
+        log("  16d-e granite-3-2b: " + json.dumps(res["lm"]))
+        res["collectives"] = cell_collectives(torch, core, dev, args, grads)
+        log("  16f one-rank NCCL: " + json.dumps(res["collectives"]))
+        del grads
+        torch.cuda.empty_cache()
+        res["dryrun"] = finish_dryrun(out, proc)
+        log("  16g dry-run: " + json.dumps(res["dryrun"]))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"cell path: {res['lm']['train']['launches']} + "
+        f"{res['lm']['serve']['prefill_launches']} flash_attention "
+        f"launches, {res['gin']['launches']} psw_spmm launches; "
+        + json.dumps({"phase_s": res["phase_s"]}))
     return res
 
 
@@ -3644,6 +4188,10 @@ def main() -> None:
     log("peak device memory (phase 15): " + json.dumps(
         {k: v["peak_gib"] for k, v in train.items()
          if isinstance(v, dict) and "peak_gib" in v}) + ", " + host_memory())
+    cells = phase_cells(torch, core, ps, ps_kernel, dev, args, clock)
+    log("peak device memory (phase 16): " + json.dumps(
+        {k: v["peak_gib"] for k, v in cells.items()
+         if isinstance(v, dict) and "peak_gib" in v}) + ", " + host_memory())
 
     kernels = [
         kernel_entry("frontier_expand",
@@ -3662,7 +4210,9 @@ def main() -> None:
                      agg_launches["psw_spmm"], spmm_res[0],
                      spmm_res + [gnn["psw_spmm"], eqv["psw_spmm"],
                                  train["transpose_gin"],
-                                 train["transpose_equiformer"]]),
+                                 train["transpose_equiformer"],
+                                 cells["gin"]["psw_spmm"],
+                                 cells["gin"]["transpose"]]),
         kernel_entry("embedding_bag",
                      "src/repro_torch/kernels/embedding_bag/csrc/"
                      "embedding_bag.cu",
@@ -3681,12 +4231,18 @@ def main() -> None:
         if entry["name"] in service_launches:
             entry["service_path_launches"] = service_launches[entry["name"]]
         if entry["name"] == "psw_spmm":
+            entry["cell_path_launches"] = {"gin_ogb_products":
+                                           cells["gin"]["launches"]}
             entry["gnn_path_launches"] = gnn["launches"]
             entry["equiformer_path_launches"] = eqv["launches"]
             entry["train_path_launches"] = {
                 "gin": train["gin"]["launches"],
                 "equiformer": train["equiformer"]["launches"]}
         if entry["name"] == "flash_attention":
+            entry["cell_path_launches"] = {
+                "granite_train_4k": cells["lm"]["train"]["launches"],
+                "granite_prefill_32k": cells["lm"]["serve"][
+                    "prefill_launches"]}
             entry["moe_path_launches"] = moe["launches"]
             entry["train_path_launches"] = {
                 "granite": train["granite"]["launches"],

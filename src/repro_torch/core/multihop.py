@@ -233,7 +233,8 @@ def _edge_keys_internal(eng: StorageEngine) -> np.ndarray:
                  for c in eng.edge_chunks()]
         if not parts:
             return np.empty(0, np.int64)
-        return np.unique(np.concatenate(parts))
+        from ..kernels.frontier_expand.ops import unique_sorted
+        return unique_sorted(np.concatenate(parts))
     return _memoized(eng, _EDGE_KEYS, build)
 
 

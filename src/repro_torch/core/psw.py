@@ -13,10 +13,13 @@ Two execution engines:
    sweep gathers source-vertex state from every interval, either through
    the precomputed PSW window rows (`mode="psw_windows"`, where the
    reference issues one `all_to_all`) or from the full vertex state
-   (`mode="dense_gather"`, its `all_gather`). Only the reference's
-   "virtual device" path is ported (`axis_name=None`: transposes stand in
-   for the collectives, all intervals on one device); the collectives over
-   several GPUs are ROADMAP slice 6.
+   (`mode="dense_gather"`, its `all_gather`). With `group=None` (the
+   reference's `axis_name=None`) all intervals sit on one device and
+   transposes stand in for the collectives. With a `torch.distributed`
+   process group each rank passes its shard of the (P, ...) arrays (P /
+   world intervals, `DeviceGraph.shard`), as the reference's callers do
+   under `shard_map`, and the exchange is ONE `all_to_all_single` of the
+   window rows (or one `all_gather_into_tensor` of the vertex state).
 
 The host build of a `DeviceGraph` is the reference's algorithm, its arrays
 bitwise equal to the reference's; the window plan's per-(owner, consumer)
@@ -26,7 +29,9 @@ fixed-order float64 scan differenced at the destination bounds, the same on
 every device: no atomics, so a sweep gives the same bits on every run and
 the same bits for every store layout holding the same edges, and a hub of
 millions of in-edges sums to float64 accuracy before the float32 result is
-rounded once.
+rounded once. The scan runs along each partition's row on its own, so a
+sweep over R ranks gives each interval the bits the one-device sweep
+gives it.
 """
 from __future__ import annotations
 
@@ -314,20 +319,26 @@ class DeviceGraph:
     def device(self) -> torch.device:
         return self.src.device
 
+    def shard(self, rank: int, world: int) -> "DeviceGraph":
+        """This rank's intervals: rows rank * P / world ... of every (P,
+        ...) array (P / world of them; `n_partitions` stays P), the input
+        of a sweep over a process group of `world` ranks."""
+        P = self.n_partitions
+        if world < 1 or P % world or not 0 <= rank < world:
+            raise ValueError(f"{P} intervals do not split over rank {rank} "
+                             f"of {world}")
+        rows = slice(rank * (P // world), (rank + 1) * (P // world))
+        sliced = {f.name: getattr(self, f.name)[rows]
+                  for f in dataclasses.fields(self)
+                  if isinstance(getattr(self, f.name), torch.Tensor)}
+        return dataclasses.replace(self, **sliced)
+
     def to(self, device) -> "DeviceGraph":
         """The same graph with every array on `device`."""
         moved = {f.name: getattr(self, f.name).to(device)
                  for f in dataclasses.fields(self)
                  if isinstance(getattr(self, f.name), torch.Tensor)}
         return dataclasses.replace(self, **moved)
-
-
-def _check_axis(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "PSW sweeps over several GPUs (axis_name) are not ported yet "
-            "(ROADMAP queue 1, slice 6); axis_name=None runs all intervals "
-            "on one device")
 
 
 def _host_device_graph(g: GraphLike):
@@ -434,22 +445,47 @@ def segment_ptr(dst_local: torch.Tensor, mask: torch.Tensor,
                               bounds.expand(key.shape[0], L + 1).contiguous())
 
 
-# -- the window exchange's virtual-device stand-in ----------------------------
-def _exchange_windows(x: torch.Tensor, send_idx: torch.Tensor) -> torch.Tensor:
+# -- collectives, with transposes standing in on one device -----------------
+def _exchange_windows(x: torch.Tensor, send_idx: torch.Tensor,
+                      group=None) -> torch.Tensor:
     """PSW window exchange.
 
-    x: (P, L, d) owner-local vertex state; send_idx: (P, P, W) owner-local
-    rows destined for each consumer. Returns recv: (P, P, W, d) with
-    recv[c, o] = x_owner_o[send_idx[o, c]]. The reference's
-    `take_along_axis` broadcasts x over the consumer axis; torch.gather
-    does not, so x is expanded (a view, no copy)."""
-    P, L, d = x.shape
-    W = send_idx.shape[-1]
-    idx = send_idx.long()[..., None].expand(P, send_idx.shape[1], W, d)
-    send = torch.gather(x[:, None].expand(P, send_idx.shape[1], L, d), 2,
-                        idx)
-    # send: (P owner, P consumer, W, d)
-    return send.transpose(0, 1)  # (P consumer, P owner, W, d)
+    x: (Pl, L, d) owner-local vertex state; send_idx: (Pl, P, W)
+    owner-local rows destined for each global consumer. Returns recv:
+    (Pl, P, W, d) with recv[c, o] = x_owner_o[send_idx[o, c]]. Over a
+    process group this is ONE `all_to_all_single`: the send buffer split
+    over consumers, the receive buffer concatenated over owners (the
+    reference's `all_to_all(split_axis=1, concat_axis=0)`); without one it
+    is the same math via a transpose. The reference's `take_along_axis`
+    broadcasts x over the consumer axis; torch.gather does not, so x is
+    expanded (a view, no copy)."""
+    Pl, L, d = x.shape
+    P, W = send_idx.shape[1], send_idx.shape[2]
+    idx = send_idx.long()[..., None].expand(Pl, P, W, d)
+    send = torch.gather(x[:, None].expand(Pl, P, L, d), 2, idx)
+    # send: (Pl owner, P consumer, W, d)
+    if group is None:
+        return send.transpose(0, 1)  # (P consumer, P owner, W, d)
+    import torch.distributed as dist
+    world = dist.get_world_size(group)
+    buf = send.transpose(0, 1).contiguous()        # (P consumer, Pl owner)
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=group)
+    # out: (world owner rank, Pl consumer, Pl owner, W, d)
+    return out.reshape(world, P // world, Pl, W, d).transpose(0, 1).reshape(
+        P // world, world * Pl, W, d)
+
+
+def _gather_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """(P * L, d): every interval's vertex state, in interval order."""
+    if group is None:
+        return x.reshape(-1, x.shape[-1])
+    import torch.distributed as dist
+    world = dist.get_world_size(group)
+    out = torch.empty((world * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out.reshape(-1, x.shape[-1])
 
 
 _SCAN_BLOCK = 1024
@@ -498,36 +534,36 @@ def segment_sum_sorted(msgs: torch.Tensor,
 
 
 def edge_centric_sweep_arrays(
-    src: torch.Tensor,          # (P, E) global src IDs
-    dst_local: torch.Tensor,    # (P, E)
-    mask: torch.Tensor,         # (P, E)
+    src: torch.Tensor,          # (Pl, E) global src IDs
+    dst_local: torch.Tensor,    # (Pl, E)
+    mask: torch.Tensor,         # (Pl, E)
     interval_len: int,
-    x: torch.Tensor,            # (P, L, d) vertex state (owner-local rows)
+    x: torch.Tensor,            # (Pl, L, d) vertex state (owner-local rows)
     msg_fn: Callable[[torch.Tensor], torch.Tensor],
     mode: str = "psw_windows",
-    axis_name: Optional[str] = None,
-    send_idx: Optional[torch.Tensor] = None,     # (P, P, W)
-    edge_owner: Optional[torch.Tensor] = None,   # (P, E)
-    edge_slot: Optional[torch.Tensor] = None,    # (P, E)
-    seg_ptr: Optional[torch.Tensor] = None,      # (P, L + 1)
+    group=None,
+    send_idx: Optional[torch.Tensor] = None,     # (Pl, P, W)
+    edge_owner: Optional[torch.Tensor] = None,   # (Pl, E)
+    edge_slot: Optional[torch.Tensor] = None,    # (Pl, E)
+    seg_ptr: Optional[torch.Tensor] = None,      # (Pl, L + 1)
 ) -> torch.Tensor:
     """One edge-centric PSW sweep over per-shard arrays: gather source state
     (from the whole vertex state, or through the PSW window exchange),
-    apply `msg_fn`, segment-sum into local destinations. Returns
-    (P, L, d') sums."""
-    _check_axis(axis_name)
+    apply `msg_fn`, segment-sum into local destinations. `group`: a
+    process group whose ranks each hold Pl = P / world intervals, or None
+    (Pl = P, one device). Returns (Pl, L, d') sums."""
     if x.ndim == 2:
         x = x[..., None]
     if mode == "dense_gather":
-        x_all = x.reshape(-1, x.shape[-1])           # (P*L, d)
-        src_state = x_all[src]                       # (P, E, d)
+        x_all = _gather_all(x, group)                # (P*L, d)
+        src_state = x_all[src]                       # (Pl, E, d)
     elif mode == "psw_windows":
         if send_idx is None:
             raise ValueError("window plan not built: build the DeviceGraph "
                              "with with_window_plan=True")
-        recv = _exchange_windows(x, send_idx)        # (P, P, W, d)
+        recv = _exchange_windows(x, send_idx, group)  # (Pl, P, W, d)
         w = recv.shape[2]
-        flat = recv.reshape(recv.shape[0], -1, x.shape[-1])  # (P, P*W, d)
+        flat = recv.reshape(recv.shape[0], -1, x.shape[-1])  # (Pl, P*W, d)
         idx = (edge_owner * w + edge_slot).long()  # < P*W: no int32 wrap
         src_state = torch.gather(
             flat, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
@@ -544,28 +580,27 @@ def edge_centric_sweep(
     x: torch.Tensor,
     msg_fn: Callable[[torch.Tensor], torch.Tensor],
     mode: str = "psw_windows",
-    axis_name: Optional[str] = None,
+    group=None,
 ) -> torch.Tensor:
-    """Sweep over the whole DeviceGraph (all intervals on its device)."""
+    """Sweep over the DeviceGraph: all intervals on its device, or, over a
+    process group, this rank's `dg.shard(rank, world)`."""
     return edge_centric_sweep_arrays(
         dg.src, dg.dst_local, dg.mask, dg.interval_len, x, msg_fn,
-        mode=mode, axis_name=axis_name, send_idx=dg.send_idx,
+        mode=mode, group=group, send_idx=dg.send_idx,
         edge_owner=dg.edge_owner, edge_slot=dg.edge_slot,
         seg_ptr=dg.seg_ptr,
     )
 
 
 def pagerank_device(dg: DeviceGraph, n_iters: int = 5, damping: float = 0.85,
-                    mode: str = "psw_windows",
-                    axis_name: Optional[str] = None) -> torch.Tensor:
-    """PageRank with the device PSW engine. Returns (P, L) float32 ranks on
-    the DeviceGraph's device."""
-    _check_axis(axis_name)
-    P, L = dg.n_partitions, dg.interval_len
+                    mode: str = "psw_windows", group=None) -> torch.Tensor:
+    """PageRank with the device PSW engine. Returns (Pl, L) float32 ranks
+    on the DeviceGraph's device: all P intervals' with `group=None`, this
+    rank's with a process group (dg then this rank's shard)."""
     inv_deg = 1.0 / torch.clamp(dg.outdeg.to(torch.float32), min=1.0)
-    r = torch.ones((P, L), dtype=torch.float32, device=dg.device)
+    r = torch.ones(inv_deg.shape, dtype=torch.float32, device=dg.device)
     for _ in range(n_iters):
-        contrib = (r * inv_deg)[..., None]           # (P, L, 1)
-        acc = edge_centric_sweep(dg, contrib, lambda s: s, mode, axis_name)
+        contrib = (r * inv_deg)[..., None]           # (Pl, L, 1)
+        acc = edge_centric_sweep(dg, contrib, lambda s: s, mode, group)
         r = (1.0 - damping) + damping * acc[..., 0]
     return r

@@ -8,15 +8,17 @@ count) moments; max/min via an elementwise fold with ±1e30 identities
 max the way a naive `segment_max(msgs * mask)` lets it).
 
 The reference's `lax.scan` over chunks is a Python loop over the chunks of
-each array's leading axis. Its sharding hints (`constrain`) do nothing on
-one device and are left out, and its per-chunk `jax.checkpoint` belongs to
-the training path, which is not ported yet."""
+each array's leading axis. Its sharding hints (`constrain`) sit where it
+has them, no-ops on one device (`repro_torch.sharding`). Its per-chunk
+`jax.checkpoint` has no counterpart: eager autograd keeps each chunk's
+(E/chunks)-sized transients, not the whole edge set's."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Sequence
 
 import torch
 
+from ..sharding import constrain, unflatten
 from .segment_ops import scatter_max, scatter_min, scatter_sum
 
 __all__ = ["multi_aggregate_chunked", "fold_aggregate"]
@@ -66,7 +68,7 @@ def multi_aggregate_chunked(
         if need_min:
             mn = scatter_min(torch.where(m > 0, msgs, POS), dst, n_nodes)
             acc["min"] = torch.minimum(acc["min"], mn)
-        return acc
+        return _on_nodes(acc)
 
     f32 = dict(dtype=torch.float32, device=dev)
     acc = {"sum": torch.zeros((n_nodes, d_msg), **f32),
@@ -78,13 +80,21 @@ def multi_aggregate_chunked(
     if need_min:
         acc["min"] = torch.full((n_nodes, d_msg), POS, **f32)
 
+    acc = _on_nodes(acc)
     if chunks == 1:
         return one_chunk(acc, edge_arrays)
-    chunked = {k: v.reshape(chunks, E // chunks, *v.shape[1:])
+    # keep chunks edge-sharded (a reshape alone could replicate them)
+    chunked = {k: constrain(unflatten(v, 0, (chunks, E // chunks)),
+                            None, "edges", *([None] * (v.ndim - 1)))
                for k, v in edge_arrays.items()}
     for i in range(chunks):
         acc = one_chunk(acc, {k: v[i] for k, v in chunked.items()})
     return acc
+
+
+def _on_nodes(acc: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: constrain(v, "nodes", *([None] * (v.ndim - 1)))
+            for k, v in acc.items()}
 
 
 def fold_aggregate(acc: Dict[str, torch.Tensor],

@@ -33,9 +33,11 @@ def gather_src(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
 
 
 def scatter_sum(msgs, dst, n_nodes: int, sorted_: bool = False):
-    out = torch.zeros((n_nodes, *msgs.shape[1:]), dtype=msgs.dtype,
-                      device=msgs.device)
-    return out.index_add_(0, dst.long(), msgs)
+    # out of place, on a buffer of the input's type (new_zeros / new_full /
+    # new_ones): a DTensor on a mesh, which cannot reshard the buffer an
+    # in-place scatter writes into
+    return msgs.new_zeros((n_nodes, *msgs.shape[1:])).index_add(
+        0, dst.long(), msgs)
 
 
 def scatter_mean(msgs, dst, n_nodes: int, sorted_: bool = False):
@@ -53,10 +55,10 @@ def _identity(dtype: torch.dtype, reduce: str):
 
 
 def _scatter_extreme(msgs, dst, n_nodes: int, reduce: str):
-    out = torch.full((n_nodes, *msgs.shape[1:]), _identity(msgs.dtype, reduce),
-                     dtype=msgs.dtype, device=msgs.device)
+    out = msgs.new_full((n_nodes, *msgs.shape[1:]),
+                        _identity(msgs.dtype, reduce))
     idx = dst.long().reshape(-1, *([1] * (msgs.dim() - 1))).expand_as(msgs)
-    return out.scatter_reduce_(0, idx, msgs, reduce, include_self=True)
+    return out.scatter_reduce(0, idx, msgs, reduce, include_self=True)
 
 
 def scatter_max(msgs, dst, n_nodes: int, sorted_: bool = False):
@@ -77,7 +79,7 @@ def scatter_std(msgs, dst, n_nodes: int, eps: float = 1e-5,
 
 
 def degree(dst: torch.Tensor, n_nodes: int) -> torch.Tensor:
-    ones = torch.ones(dst.shape, dtype=torch.float32, device=dst.device)
+    ones = dst.new_ones(dst.shape, dtype=torch.float32)
     return scatter_sum(ones, dst, n_nodes)
 
 

@@ -35,7 +35,7 @@ from . import kernel as _kernel
 from .ref import frontier_expand_torch
 
 __all__ = ["FrontierPlan", "build_frontier_plan", "frontier_expand_counts",
-           "hub_chunks", "kernel_layout", "plan_to_device"]
+           "hub_chunks", "kernel_layout", "plan_to_device", "unique_sorted"]
 
 # A kernel warp walks 32 consecutive destinations or one hub chunk: a
 # destination with more than LIGHT_EDGES edges is cut into chunks of at most
@@ -115,6 +115,20 @@ def hub_chunks(edge_ptr: torch.Tensor, light_edges: int = LIGHT_EDGES,
             "light_edges": light_edges, "chunk_edges": chunk_edges}
 
 
+def unique_sorted(a) -> np.ndarray:
+    """`np.unique` of a 1-D array (its sorted distinct values) by a sort and
+    a neighbour compare. numpy 2.3 and later take integers through a hash
+    table instead: 93 s for 56M int64 keys on an H100 host's CPU, where the
+    sort takes 8 s."""
+    a = np.sort(np.asarray(a).ravel())
+    if a.size > 1:
+        keep = np.empty(a.size, bool)
+        keep[0] = True
+        np.not_equal(a[1:], a[:-1], out=keep[1:])
+        a = a[keep]
+    return a
+
+
 def build_frontier_plan(src, dst, n_src: int, n_dst: int,
                         k_slots: int = 32) -> FrontierPlan:
     """Host-side, fully vectorized: dedup + destination-major sort via one
@@ -122,7 +136,7 @@ def build_frontier_plan(src, dst, n_src: int, n_dst: int,
     arithmetic, then one scatter into the (R, K) slot grid."""
     src = np.asarray(src, np.int64).ravel()
     dst = np.asarray(dst, np.int64).ravel()
-    keys = np.unique(dst * np.int64(n_src) + src)
+    keys = unique_sorted(dst * np.int64(n_src) + src)
     E = keys.shape[0]
     if E == 0:
         return FrontierPlan(np.zeros((128, k_slots), np.int32),

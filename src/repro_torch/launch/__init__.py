@@ -1,3 +1,3 @@
 """Launchers (port of the reference `repro/launch/`): the serving loop
-(`serve.py`) and the trainer (`train.py`). `steps.py` and the dry-run are
-ROADMAP slice 9's."""
+(`serve.py`), the trainer (`train.py`), the production mesh (`mesh.py`),
+the cells' steps (`steps.py`) and the dry-run (`dryrun.py`)."""

@@ -7,9 +7,10 @@ Plain torch throughout, as the reference is plain jnp: its attention is an
 einsum with a key-padding mask (no Pallas kernel), and its lookups are
 per-slot gathers of the item table (`table[item_seq]`, candidate rows), not
 pooled bags, so no hand-written kernel is on this path. The reference's
-sharding hints (`constrain`) do nothing on one device and are left out;
-`param_logical_axes` is ROADMAP slice 7's. Ids index the table directly, so
-an id outside it raises (the reference's `jnp.take` fills such rows).
+sharding hints (`constrain`) sit where it has them, no-ops on one device
+(`repro_torch.sharding`), and `param_logical_axes` gives the params'
+logical axes. Ids index the table directly, so an id outside it raises
+(the reference's `jnp.take` fills such rows).
 
 Behaviour kept from the reference: the tanh GELU, a layer norm over the
 population variance with eps 1e-6 and no bias, a sequence that is all
@@ -29,10 +30,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..sharding import constrain, unflatten
 from .gnn.common import param_device
 
 __all__ = ["Bert4RecConfig", "encode", "init_params", "masked_lm_loss",
-           "score_all_items", "score_candidates"]
+           "param_logical_axes", "score_all_items", "score_candidates"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +98,24 @@ def init_params(gen: Optional[torch.Generator], cfg: Bert4RecConfig,
             "final_ln": ones(d)}
 
 
+def param_logical_axes(cfg: Bert4RecConfig):
+    """Tree of logical-axis tuples mirroring init_params' structure (the
+    reference's)."""
+    blk = {
+        "wq": ("fsdp", "model"), "wk": ("fsdp", "model"),
+        "wv": ("fsdp", "model"), "wo": ("model", "fsdp"),
+        "w1": ("fsdp", "model"), "w2": ("model", "fsdp"),
+        "ln1": (None,), "ln2": (None,), "b1": ("model",), "b2": (None,),
+    }
+    return {
+        "item_embed": ("table", None),   # PAL-hashed row sharding
+        "pos_embed": (None, None),
+        "blocks": [dict(blk) for _ in range(cfg.n_blocks)],
+        "out_bias": ("table",),
+        "final_ln": (None,),
+    }
+
+
 def _ln(x, scale, eps: float = 1e-6):
     m = x.mean(-1, keepdim=True)
     v = x.var(-1, keepdim=True, unbiased=False)
@@ -112,13 +132,16 @@ def encode(params, item_seq: torch.Tensor, cfg: Bert4RecConfig):
     cdt = cfg.compute_dtype
     pad = item_seq == 0
 
-    x = F.embedding(item_seq, params["item_embed"]).to(cdt)
+    # replicate the (row-sharded) table for the lookup, as the reference does
+    table = constrain(params["item_embed"], None, None)
+    x = F.embedding(item_seq, table).to(cdt)
     x = x + params["pos_embed"][None, :S].to(cdt)
+    x = constrain(x, "batch", None, None)
     for blk in params["blocks"]:
         h = _ln(x, blk["ln1"].to(cdt))
-        q = (h @ blk["wq"].to(cdt)).reshape(B, S, H, dh)
-        k = (h @ blk["wk"].to(cdt)).reshape(B, S, H, dh)
-        v = (h @ blk["wv"].to(cdt)).reshape(B, S, H, dh)
+        q = unflatten(h @ blk["wq"].to(cdt), 2, (H, dh))
+        k = unflatten(h @ blk["wk"].to(cdt), 2, (H, dh))
+        v = unflatten(h @ blk["wv"].to(cdt), 2, (H, dh))
         s = torch.einsum("bqhd,bkhd->bhqk", q, k) * dh ** -0.5
         s = s.masked_fill(pad[:, None, None, :], -torch.inf)
         p = torch.softmax(s, dim=-1)
@@ -127,7 +150,9 @@ def encode(params, item_seq: torch.Tensor, cfg: Bert4RecConfig):
         h = _ln(x, blk["ln2"].to(cdt))
         f = F.gelu(h @ blk["w1"].to(cdt) + blk["b1"].to(cdt),
                    approximate="tanh")
+        f = constrain(f, "batch", None, "model")
         x = x + f @ blk["w2"].to(cdt) + blk["b2"].to(cdt)
+        x = constrain(x, "batch", None, None)
     return _ln(x, params["final_ln"].to(cdt))
 
 
@@ -213,7 +238,8 @@ def score_all_items(params, item_seq: torch.Tensor, cfg: Bert4RecConfig):
     (B, padded_vocab), the bias added in the product's epilogue."""
     last = encode(params, item_seq, cfg)[:, -1]
     table = params["item_embed"].to(last.dtype)
-    return torch.addmm(params["out_bias"].to(last.dtype), last, table.T)
+    return constrain(torch.addmm(params["out_bias"].to(last.dtype), last,
+                                 table.T), "batch", "table")
 
 
 def score_candidates(params, item_seq: torch.Tensor,

@@ -37,8 +37,8 @@ d_out) rows; on one rank, the whole batch's. The reference's `lax.scan`
 over layers and chunks are Python loops; its `jax.checkpoint`s
 (`remat_layers`, and each chunk's pass when `edge_chunks > 1`) are
 `torch.utils.checkpoint` while grad is on and nothing under `no_grad`.
-`constrain` has no counterpart on one device, as in the port's
-transformer.
+The reference's `constrain`s sit where it has them, no-ops on one
+device (`repro_torch.sharding`).
 """
 from __future__ import annotations
 
@@ -52,6 +52,7 @@ from ...graph.psw_ops import (local_edge_softmax, local_gather, ring_gather,
                               ring_mesh)
 from ...graph.segment_ops import edge_softmax
 from ...kernels.psw_spmm.ops import prepare_rows, psw_spmm_rows
+from ...sharding import constrain
 from .common import init_mlp, mlp_apply, param_device
 from .wigner import blockdiag_apply, irreps_dim, rotation_to_z, wigner_rotations
 
@@ -236,6 +237,7 @@ def forward(params, batch, cfg: EquiformerV2Config, ring=None):
         d_loc = dst
 
     x = F.pad(params["embed"][species.long()][:, None, :], (0, 0, 0, K - 1))
+    x = constrain(x, "nodes", None, None)
 
     # geometry is an input, not a parameter: no gradient reaches it, so
     # autograd never builds the Wigner recursion's backward
@@ -251,7 +253,8 @@ def forward(params, batch, cfg: EquiformerV2Config, ring=None):
         safe_rel = torch.where(emask[:, None], rel,
                                torch.tensor([0.0, 0.0, 1.0], device=dev))
         R = rotation_to_z(safe_rel)                      # (E, 3, 3)
-        mats = wigner_rotations(R, L)
+        mats = [constrain(m, "edges", None, None)
+                for m in wigner_rotations(R, L)]
         rbf = _rbf(dist, cfg) * emask[:, None]
 
     Ec = E // nc
@@ -279,6 +282,7 @@ def forward(params, batch, cfg: EquiformerV2Config, ring=None):
         else:
             xb = x
             xs_all = x[src]
+        xs_all = constrain(xs_all, "edges", None, None)
 
         def gather_d(dst_c):
             return local_gather(xb, dst_c, ring) if psw else x[dst_c]
@@ -330,7 +334,7 @@ def forward(params, batch, cfg: EquiformerV2Config, ring=None):
             else:
                 blk = blk * gates[:, l - 1][:, None, :]
             outs.append(blk @ lp["ffn"]["w2"][l])
-        return x + torch.cat(outs, dim=1)
+        return constrain(x + torch.cat(outs, dim=1), "nodes", None, None)
 
     for lp in params["layers"]:
         x = _remat(full_layer, x, lp) if cfg.remat_layers else \

@@ -17,7 +17,8 @@ reference masks each gathered row
 x row reaches only the rows with a live edge from it, where the
 reference's 0 · inf also puts NaN in a masked edge's destination (ROADMAP
 queue 3, caveat e). For finite x the sums are the reference's, in another
-order."""
+order. The reference's `constrain`s sit where it has them
+(`repro_torch.sharding`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,9 +26,10 @@ import dataclasses
 import torch
 
 from ...kernels.psw_spmm.ops import prepare_rows, psw_spmm_rows
+from ...sharding import constrain
 from .common import init_mlp, layer_norm, mlp_apply, param_device
 
-__all__ = ["GINConfig", "forward", "init_params"]
+__all__ = ["GINConfig", "forward", "init_params", "neighbour_summer"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,18 +56,26 @@ def init_params(gen, cfg: GINConfig, device=None):
     }
 
 
+def neighbour_summer(batch, n: int, device):
+    """x -> each node's sum of x over its live in-edges: psw_spmm over one
+    row layout of the batch's live edges, built once for every layer."""
+    live = batch["edge_mask"].bool()
+    layout = prepare_rows(batch["src"][live], batch["dst"][live], n,
+                          device=device)
+    return lambda x: psw_spmm_rows(layout, x)
+
+
 def forward(params, batch, cfg: GINConfig):
     x = mlp_apply(params["encoder"], batch["x"], final_act=True)
+    x = constrain(x, "nodes", None)
     nmask = batch["node_mask"].to(x.dtype)[:, None]
-    live = batch["edge_mask"].bool()
-    layout = prepare_rows(batch["src"][live], batch["dst"][live], x.shape[0],
-                          device=x.device)
+    neighbour_sum = neighbour_summer(batch, x.shape[0], x.device)
 
     layer_reps = [x]
     for lp in params["layers"]:
-        h = (1.0 + lp["eps"]) * x + psw_spmm_rows(layout, x)
+        h = (1.0 + lp["eps"]) * x + neighbour_sum(x)
         x = mlp_apply(lp["mlp"], h, final_act=True)
-        x = layer_norm(x) * nmask
+        x = constrain(layer_norm(x) * nmask, "nodes", None)
         layer_reps.append(x)
 
     out = 0.0

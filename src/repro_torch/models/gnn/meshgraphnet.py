@@ -5,8 +5,9 @@ edge and node updates, sum aggregation. Port of the reference
 
 The reference's one `lax.scan` over stacked blocks is a loop over
 `params["blocks"]`, and its chunk scan a loop over edge chunks.
-`remat_blocks` is kept in the config and does nothing until the training
-path is ported (it selects `jax.checkpoint` there)."""
+`remat_blocks` is kept so the config equals the reference's (where it
+selects `jax.checkpoint`); the port does not checkpoint blocks, so a
+training step keeps every block's activations."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,6 +15,7 @@ import dataclasses
 import torch
 
 from ...graph.segment_ops import scatter_sum
+from ...sharding import constrain, unflatten
 from .common import init_mlp, layer_norm, mlp_apply, param_device
 
 __all__ = ["MeshGraphNetConfig", "forward", "init_params"]
@@ -58,13 +60,16 @@ def forward(params, batch, cfg: MeshGraphNetConfig):
                              final_act=True))
     e = layer_norm(mlp_apply(params["edge_encoder"], batch["edge_attr"],
                              final_act=True))
+    h = constrain(h, "nodes", None)
+    e = constrain(e, "edges", None)
 
     nc = cfg.edge_chunks
     if nc < 1 or e.shape[0] % nc:
         raise ValueError(f"{e.shape[0]} edges do not split into {nc} chunks")
 
     def ch(a):
-        return a.reshape(nc, a.shape[0] // nc, *a.shape[1:])
+        return constrain(unflatten(a, 0, (nc, a.shape[0] // nc)),
+                         None, "edges", *([None] * (a.ndim - 1)))
 
     for blk in params["blocks"]:
         if nc == 1:
@@ -89,5 +94,7 @@ def forward(params, batch, cfg: MeshGraphNetConfig):
             e = torch.cat(e_new).reshape(e.shape)
         n_in = torch.cat([h, agg], dim=-1)
         h = layer_norm(h + mlp_apply(blk["node_mlp"], n_in, final_act=True))
+        h = constrain(h, "nodes", None)
+        e = constrain(e, "edges", None)
 
     return mlp_apply(params["decoder"], h)

@@ -19,6 +19,7 @@ import torch
 
 from ...graph.chunked import fold_aggregate, multi_aggregate_chunked
 from ...graph.segment_ops import degree
+from ...sharding import constrain
 from .common import init_mlp, layer_norm, mlp_apply, param_device
 
 __all__ = ["AGGREGATORS", "PNAConfig", "SCALERS", "forward", "init_params"]
@@ -53,7 +54,8 @@ def init_params(gen, cfg: PNAConfig, device=None):
 
 
 def forward(params, batch, cfg: PNAConfig):
-    x = mlp_apply(params["encoder"], batch["x"], final_act=True)
+    x = constrain(mlp_apply(params["encoder"], batch["x"], final_act=True),
+                  "nodes", None)
     src, dst = batch["src"], batch["dst"]
     n = x.shape[0]
     deg = degree(torch.where(batch["edge_mask"].bool(), dst, n - 1), n)
@@ -72,8 +74,9 @@ def forward(params, batch, cfg: PNAConfig):
             n, cfg.d_hidden, AGGREGATORS, chunks=cfg.edge_chunks)
         agg = fold_aggregate(acc, AGGREGATORS).to(x.dtype)     # (N, 4d)
         scaled = torch.cat([agg, agg * amp, agg * att], -1)     # (N, 12d)
+        scaled = constrain(scaled, "nodes", None)
         h = mlp_apply(lp["post"], torch.cat([x, scaled], -1))
-        x = layer_norm(x + h)
+        x = constrain(layer_norm(x + h), "nodes", None)
 
     if cfg.readout == "graph":
         pooled = (x * batch["node_mask"][:, None]).sum(0, keepdim=True)

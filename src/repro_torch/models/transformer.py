@@ -6,7 +6,9 @@ The reference's functional API and parameter layout are kept: params are a
 dict of tensors whose layer leaves carry a leading `n_layers` axis, so
 `repro_torch.convert` maps the reference's pytree key for key. `lax.scan`
 over layers is a Python loop. The reference's sharding hints (`constrain`)
-do nothing on one device and are left out; sharding is ROADMAP slice 7.
+sit where it has them: on one device they return their input, on a mesh
+they redistribute a DTensor (`repro_torch.sharding`);
+`param_logical_axes` gives the params' logical axes, leaf for leaf.
 
 Prefill and training attention (no KV cache) goes through
 `kernels.flash_attention.flash_attention`: the hand-written kernel for CUDA
@@ -61,12 +63,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..core.multihop import _resolve_device
 from ..kernels.flash_attention import attention_chunked, flash_attention
+from ..sharding import constrain, unflatten
 
 __all__ = [
     "MoEConfig",
     "TransformerConfig",
     "attention",
     "blockwise_attention",
+    "cached_attention",
     "cast_params",
     "decode_step",
     "dense_mlp",
@@ -74,10 +78,12 @@ __all__ = [
     "forward",
     "init_cache",
     "init_params",
+    "label_logits",
     "layer_fn",
     "loss_fn",
     "moe_capacity",
     "moe_mlp",
+    "param_logical_axes",
     "prefill",
     "qkv",
     "rms_norm",
@@ -188,9 +194,9 @@ def qkv(params, x, cfg: TransformerConfig, positions):
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = cfg.compute_dtype
-    q = (x @ params["wq"].to(cdt)).reshape(B, S, H, Dh)
-    k = (x @ params["wk"].to(cdt)).reshape(B, S, Hkv, Dh)
-    v = (x @ params["wv"].to(cdt)).reshape(B, S, Hkv, Dh)
+    q = unflatten(x @ params["wq"].to(cdt), 2, (H, Dh))
+    k = unflatten(x @ params["wk"].to(cdt), 2, (Hkv, Dh))
+    v = unflatten(x @ params["wv"].to(cdt), 2, (Hkv, Dh))
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"].to(cdt), cfg.norm_eps)
         k = rms_norm(k, params["k_norm"].to(cdt), cfg.norm_eps)
@@ -209,6 +215,8 @@ def attention(params, x, cfg: TransformerConfig, positions, kv_cache=None,
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = cfg.compute_dtype
     q, k, v = qkv(params, x, cfg, positions)
+    q = constrain(q, "batch", None, "model", None)
+    k = constrain(k, "batch", None, None, None)
     if kv_cache is None:
         out = flash_attention(q, k, v, causal=True)
         new_kv = (k, v)
@@ -216,27 +224,36 @@ def attention(params, x, cfg: TransformerConfig, positions, kv_cache=None,
         ck, cv = kv_cache
         ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
         cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
-        T = ck.shape[1]
-        qg = q.reshape(B, S, Hkv, H // Hkv, Dh)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                         ck.float()) * (Dh ** -0.5)
-        # causal within the new tokens + all previous cache entries
-        kv_idx = torch.arange(T, device=x.device)
-        qpos = cache_pos + torch.arange(S, device=x.device)
-        mask = kv_idx[None, :] <= qpos[:, None]             # (S, T)
-        s = torch.where(mask, s, -torch.inf)
-        p = torch.softmax(s, dim=-1)
-        out = torch.einsum("bhgqk,bkhd->bqhgd", p, cv.float())
-        out = out.reshape(B, S, H, Dh).to(cdt)
+        out = cached_attention(q, ck, cv, cache_pos).to(cdt)
         new_kv = (ck, cv)
+    out = constrain(out, "batch", None, "model", None)
     y = out.reshape(B, S, H * Dh) @ params["wo"].to(cdt)
     return y, new_kv
 
 
+def cached_attention(q, ck, cv, cache_pos: int) -> torch.Tensor:
+    """Decode attention of q (B, S, H, Dh) over a cache (B, T, Hkv, Dh),
+    query s at position cache_pos + s seeing cache slots 0 ... that
+    position. fp32 scores and output."""
+    B, S, H, Dh = q.shape
+    T, Hkv = ck.shape[1], ck.shape[2]
+    qg = q.reshape(B, S, Hkv, H // Hkv, Dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                     ck.float()) * (Dh ** -0.5)
+    # causal within the new tokens + all previous cache entries
+    kv_idx = torch.arange(T, device=q.device)
+    qpos = cache_pos + torch.arange(S, device=q.device)
+    mask = kv_idx[None, :] <= qpos[:, None]             # (S, T)
+    s = torch.where(mask, s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, cv.float())
+    return out.reshape(B, S, H, Dh)
+
+
 def dense_mlp(params, x, cfg: TransformerConfig):
     cdt = cfg.compute_dtype
-    g = x @ params["w_gate"].to(cdt)
-    u = x @ params["w_up"].to(cdt)
+    g = constrain(x @ params["w_gate"].to(cdt), "batch", None, "model")
+    u = constrain(x @ params["w_up"].to(cdt), "batch", None, "model")
     return (F.silu(g) * u) @ params["w_down"].to(cdt)
 
 
@@ -312,22 +329,27 @@ def _moe_core(params, x, cfg: TransformerConfig):
     ok = pos_in_e < cap
     slot = torch.where(ok, sorted_e * cap + pos_in_e, E * cap)
     # invert slot -> token; every dropped pair lands on the spare slot E·cap
-    tfs = torch.zeros(E * cap + 1, dtype=torch.long, device=dev)
+    # factories from the routed tensors: DTensors in the dry-run, where an
+    # in-place write into a plain tensor cannot take DTensor values
+    tfs = order.new_zeros(E * cap + 1)
     tfs[slot] = order // K
     tfs = tfs[:E * cap]
 
-    ein = xg.to(cdt)[tfs].reshape(E, cap, d)
-    eout = expert_ffn(params, ein, cdt).reshape(E * cap, d)
+    # one token group: the reference's (dp, ...) constraints without dp
+    exp_ax = "experts" if mo.ep_mode == "expert" else None
+    ein = constrain(xg.to(cdt)[tfs].reshape(E, cap, d), exp_ax, None, None)
+    eout = constrain(expert_ffn(params, ein, cdt), exp_ax, None, None)
+    eout = eout.reshape(E * cap, d)
 
     # combine: each token's slots in ascending slot order, each row times
     # its pair's gate; a dropped pair (slot E·cap, which sorts last) adds 0
-    slots = torch.empty(t * K, dtype=torch.long, device=dev)
+    slots = order.new_empty(t * K)
     slots[order] = slot
     slots, by_slot = slots.reshape(t, K).sort(dim=1)
     pair_gates = gates.to(cdt).gather(1, by_slot)
     dropped = slots == E * cap
     slots = slots.clamp(max=E * cap - 1)
-    out = torch.zeros((t, d), dtype=cdt, device=dev)
+    out = xg.new_zeros((t, d), dtype=cdt)
     for j in range(K):
         rows = eout[slots[:, j]] * pair_gates[:, j, None]
         out = out + rows.masked_fill_(dropped[:, j, None], 0)
@@ -336,7 +358,7 @@ def _moe_core(params, x, cfg: TransformerConfig):
     # non-finite FFN of x[0]
     last = eout.reshape(E, cap, d)[:, -1] * 0
     out[0] = out[0] + torch.where((counts < cap)[:, None], last, 0).sum(0)
-    return out.reshape(B, S, d), aux
+    return constrain(out, "batch", None).reshape(B, S, d), aux
 
 
 def layer_fn(params, x, cfg: TransformerConfig, positions, kv_cache=None,
@@ -347,12 +369,15 @@ def layer_fn(params, x, cfg: TransformerConfig, positions, kv_cache=None,
     h = rms_norm(x, params["ln1"].to(cdt), cfg.norm_eps)
     a, new_kv = attention(params["attn"], h, cfg, positions, kv_cache,
                           cache_pos)
-    x = x + a
+    # a DTensor keeps the output product's partial sums lazily, where XLA
+    # reduces them at the product: reduce them here, not in every later op
+    x = constrain(x + a, "batch", None, None)
     h = rms_norm(x, params["ln2"].to(cdt), cfg.norm_eps)
     if cfg.moe is None:
-        return x + dense_mlp(params["mlp"], h, cfg), new_kv, 0.0
-    m, aux = moe_mlp(params["mlp"], h, cfg)
-    return x + m, new_kv, aux
+        m, aux = dense_mlp(params["mlp"], h, cfg), 0.0
+    else:
+        m, aux = moe_mlp(params["mlp"], h, cfg)
+    return constrain(x + m, "batch", None, None), new_kv, aux
 
 
 # ---------------------------------------------------------------------------
@@ -416,6 +441,36 @@ def init_params(cfg: TransformerConfig,
     }
 
 
+def param_logical_axes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Tree of logical-axis tuples mirroring init_params' structure (the
+    reference's, leaf for leaf; the stacked layer axis leads, unsharded)."""
+    attn = {
+        "wq": ("fsdp", "model"), "wk": ("fsdp", "model"),
+        "wv": ("fsdp", "model"), "wo": ("model", "fsdp"),
+    }
+    if cfg.qk_norm:
+        attn["q_norm"] = (None,)
+        attn["k_norm"] = (None,)
+    if cfg.moe is None:
+        mlp = {"w_gate": ("fsdp", "model"), "w_up": ("fsdp", "model"),
+               "w_down": ("model", "fsdp")}
+    elif cfg.moe.ep_mode == "ffn":
+        mlp = {"router": ("fsdp", None), "w_gate": (None, "fsdp", "model"),
+               "w_up": (None, "fsdp", "model"),
+               "w_down": (None, "model", "fsdp")}
+    else:
+        mlp = {"router": ("fsdp", None), "w_gate": ("experts", "fsdp", None),
+               "w_up": ("experts", "fsdp", None),
+               "w_down": ("experts", None, "fsdp")}
+    layer = {"attn": attn, "mlp": mlp, "ln1": (None,), "ln2": (None,)}
+    return {
+        "embed": ("model", "fsdp"),
+        "layers": _map(layer, lambda ax: (None, *ax)),
+        "final_norm": (None,),
+        "lm_head": ("model", "fsdp"),
+    }
+
+
 def _map(tree, fn):
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
@@ -475,7 +530,7 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig):
     is the reference's summed MoE loss, a float32 0 for dense layers."""
     B, S = tokens.shape
     cdt = cfg.compute_dtype
-    x = _embed(params, tokens, cfg)
+    x = constrain(_embed(params, tokens, cfg), "batch", None, None)
     positions = torch.arange(S, device=x.device).expand(B, S)
 
     def body(x, lp):
@@ -489,7 +544,7 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig):
         aux = aux + a
     x = rms_norm(x, params["final_norm"].to(cdt), cfg.norm_eps)
     logits = torch.einsum("bsd,vd->bsv", x, params["lm_head"].to(cdt))
-    return logits, aux
+    return constrain(logits, "batch", None, "model"), aux
 
 
 def loss_fn(params, batch, cfg: TransformerConfig) -> torch.Tensor:
@@ -503,8 +558,13 @@ def loss_fn(params, batch, cfg: TransformerConfig) -> torch.Tensor:
             >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    gold = label_logits(logits, batch["labels"])
     return (logz - gold).mean() + aux
+
+
+def label_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's logit of its label: (..., V), (...) -> (...)."""
+    return logits.gather(-1, labels.long()[..., None])[..., 0]
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
@@ -549,4 +609,4 @@ def decode_step(params, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
                            cache_pos=pos)
     x = rms_norm(x[:, -1], params["final_norm"].to(cdt), cfg.norm_eps)
     logits = torch.einsum("bd,vd->bv", x, params["lm_head"].to(cdt))
-    return logits, cache
+    return constrain(logits, "batch", "model"), cache

@@ -133,3 +133,64 @@ def equiformer_shard(rank, world, arrays, cfg_kw, batch):
         mine[k] = torch.from_numpy(a[rank * per:(rank + 1) * per])
     with torch.no_grad():
         return eq.forward(params, mine, cfg).numpy()
+
+
+def psw_message(s):
+    """The width-changing message of the ranked PSW sweep checks."""
+    return s[..., :1] * s[..., 1:] + 0.5
+
+
+def psw_sweep_shard(rank, world, graphs, n_iters):
+    """For each (arrays, x) of `graphs`: this rank's intervals of the
+    DeviceGraph (`convert.device_graph_from_arrays` of the global arrays,
+    then `shard`), the sweep of x's rows under `psw_message` and PageRank,
+    both modes, over the world process group."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import convert
+    from repro_torch.core import psw
+    res = []
+    for arrays, x in graphs:
+        dg = convert.device_graph_from_arrays(arrays, "cpu").shard(rank,
+                                                                   world)
+        pl = dg.src.shape[0]
+        xl = torch.from_numpy(x[rank * pl:(rank + 1) * pl])
+        out = {}
+        for mode in ("dense_gather", "psw_windows"):
+            out["sweep_" + mode] = psw.edge_centric_sweep(
+                dg, xl, psw_message, mode, group=dist.group.WORLD).numpy()
+            out["pr_" + mode] = psw.pagerank_device(
+                dg, n_iters=n_iters, mode=mode,
+                group=dist.group.WORLD).numpy()
+        res.append(out)
+    return res
+
+
+def compressed_psum_shard(rank, world, grads, residuals):
+    """`compressed_psum_tree` of this rank's gradient and residual trees
+    (numpy dicts) over the world process group."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim import compressed_psum_tree
+    g = {k: torch.from_numpy(v) for k, v in grads[rank].items()}
+    r = {k: torch.from_numpy(v) for k, v in residuals[rank].items()}
+    mean, new_r = compressed_psum_tree(g, r, dist.group.WORLD)
+    return ({k: v.numpy() for k, v in mean.items()},
+            {k: v.numpy() for k, v in new_r.items()})
+
+
+def reference_subprocess(code, *argv, devices=4, timeout=300):
+    """Run `code` (a script that imports the reference) in a fresh
+    interpreter on `devices` host devices (jax fixes its device count at
+    its first init, so this cannot happen in the test process)."""
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}",
+               PYTHONPATH=os.path.join(root, "src"))
+    res = subprocess.run([sys.executable, "-c", code, *map(str, argv)],
+                         capture_output=True, text=True, env=env,
+                         timeout=timeout)
+    if res.returncode != 0:
+        raise AssertionError(res.stderr[-4000:])

@@ -303,3 +303,15 @@ def test_launch_counts_are_exact_from_threads(kernel, monkeypatch):
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert mod.launches == 40_000
+
+
+@pytest.mark.parametrize("n,hi", [(0, 5), (1, 5), (2000, 7), (50_000, 2**40),
+                                  (50_000, 100)])
+def test_unique_sorted_is_np_unique(n, hi):
+    """The plan's dedup (a sort and a neighbour compare) gives what
+    np.unique gives: the sorted distinct values, negatives included."""
+    rng = np.random.default_rng(n + hi)
+    a = rng.integers(-hi, hi, n, dtype=np.int64)
+    got = ops.unique_sorted(a)
+    want = np.unique(a)
+    assert got.dtype == want.dtype and np.array_equal(got, want)

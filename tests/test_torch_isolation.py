@@ -46,7 +46,9 @@ def test_every_module_imports_without_jax_or_repro():
                  "configs.equiformer_v2", "models.bert4rec",
                  "configs.bert4rec", "configs.phi35_moe",
                  "configs.qwen3_moe", "optim", "optim.adamw",
-                 "launch.train"):
+                 "launch.train", "sharding", "launch.mesh", "launch.steps",
+                 "launch.dryrun", "optim.compression",
+                 "configs.graphchi_db"):
         assert "repro_torch." + name in mods, name
     code = (
         "import sys\n"

@@ -8,7 +8,10 @@ store-vs-store and mode-vs-mode comparisons are exact (the same integer
 arrays, or the same float operations in the same order). Device PageRank
 against the reference's is rtol 1e-5, atol 1e-6: the reference sums each
 destination in float32 with `segment_sum`, the port in float64 rounded once
-to float32, so the two differ by float32 rounding only."""
+to float32, so the two differ by float32 rounding only. The sweep over
+four gloo ranks (`DeviceGraph.shard`, `group=`) is bitwise the one-device
+sweep in both modes, and within the message test's 1e-5 of the
+reference's `shard_map` over four host devices."""
 import numpy as np
 import pytest
 import torch
@@ -218,12 +221,100 @@ def test_device_none_without_cuda_raises():
 
 
 def test_collectives_over_devices_are_not_ported():
+    """The sweep over ranks is ported (`group`, the ranked tests below);
+    the reference's `axis_name` keyword is not, and the refusals stay."""
     dg = T.build_device_graph(bulk(T, 10), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(TypeError):
         T.pagerank_device(dg, axis_name="intervals")
+    with pytest.raises(ValueError, match="do not split"):
+        dg.shard(0, 3)
     with pytest.raises(ValueError):
         T.pagerank_device(dg, mode="ring")
     no_plan = T.build_device_graph(bulk(T, 10), device="cpu",
                                    with_window_plan=False)
     with pytest.raises(ValueError, match="window plan"):
         T.pagerank_device(no_plan, mode="psw_windows")
+
+
+RANKS = 4
+REF_SHARD_MAP = """
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, PartitionSpec as P
+import repro.core as R
+from repro.core import psw as rpsw
+from repro.jax_compat import shard_map
+
+d = np.load(sys.argv[1])
+g = R.GraphPAL.from_edges(d["src"], d["dst"], n_partitions=4,
+                          max_id=int(d["max_id"]))
+dg = rpsw.build_device_graph(g)
+mesh = Mesh(np.array(jax.devices()[:4]), ("i",))
+msg = lambda s: s[..., :1] * s[..., 1:] + 0.5
+out = {}
+for mode in ("dense_gather", "psw_windows"):
+    def f(s, dl, m, x, si, eo, es, mode=mode):
+        return rpsw.edge_centric_sweep_arrays(
+            s, dl, m, dg.interval_len, x, msg, mode=mode, axis_name="i",
+            send_idx=si, edge_owner=eo, edge_slot=es)
+    spec = P("i")
+    out[mode] = np.asarray(shard_map(f, mesh=mesh, in_specs=(spec,) * 7,
+                                     out_specs=spec)(
+        dg.src, dg.dst_local, dg.mask, jnp.asarray(d["x"]), dg.send_idx,
+        dg.edge_owner, dg.edge_slot))
+np.savez(sys.argv[2], **out)
+"""
+
+
+def reference_shard_map(tmp_path, src, dst, x):
+    """The reference's sweep under shard_map on 4 host devices."""
+    from _torch_ring import reference_subprocess
+    inp, outp = tmp_path / "ref_in.npz", tmp_path / "ref_out.npz"
+    np.savez(inp, src=src, dst=dst, x=x, max_id=N - 1)
+    reference_subprocess(REF_SHARD_MAP, inp, outp)
+    return dict(np.load(outp))
+
+
+def test_sweep_over_ranks_matches_one_device_and_reference(tmp_path):
+    """Four gloo ranks over 4 intervals (one a rank, the reference's
+    layout) and over 8 (two a rank): the ranked sweep and PageRank bitwise
+    equal to the one-device ones in both modes, and the 4-interval sweep
+    within 1e-5 of the reference's shard_map."""
+    from _torch_ring import psw_message, psw_sweep_shard, spawn_ring
+    from test_torch_multihop import edges
+    src, dst = edges(11)
+    rng = np.random.default_rng(11)
+    graphs, dgs = [], []
+    for p in (4, 8):
+        tdg = T.build_device_graph(T.GraphPAL.from_edges(
+            src, dst, n_partitions=p, max_id=N - 1), device="cpu")
+        x = rng.normal(size=(p, tdg.interval_len, 2)).astype(np.float32)
+        graphs.append((convert.device_graph_to_arrays(tdg), x))
+        dgs.append(tdg)
+    ranks = spawn_ring(psw_sweep_shard, RANKS, tmp_path, graphs, 5)
+    ref = reference_shard_map(tmp_path, src, dst, graphs[0][1])
+    for i, (tdg, (_, x)) in enumerate(zip(dgs, graphs)):
+        for mode in MODES:
+            one = T.edge_centric_sweep(tdg, torch.from_numpy(x), psw_message,
+                                       mode).numpy()
+            got = np.concatenate([r[i]["sweep_" + mode] for r in ranks])
+            assert np.array_equal(got, one), (tdg.n_partitions, mode)
+            if i == 0:
+                np.testing.assert_allclose(got, ref[mode], rtol=1e-5,
+                                           atol=1e-5)
+            pr = np.concatenate([r[i]["pr_" + mode] for r in ranks])
+            assert np.array_equal(
+                pr, T.pagerank_device(tdg, mode=mode).numpy()), mode
+
+
+def test_shard_takes_each_ranks_rows():
+    dg = T.build_device_graph(bulk(T, 12), device="cpu")
+    parts = [dg.shard(r, 4) for r in range(4)]
+    for name in FIELDS + ("seg_ptr",):
+        whole = getattr(dg, name)
+        assert torch.equal(torch.cat([getattr(p, name) for p in parts]),
+                           whole), name
+        assert getattr(parts[1], name).shape[0] == 2
+    assert parts[0].n_partitions == dg.n_partitions
