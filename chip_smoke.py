@@ -185,7 +185,13 @@ steps of launch/steps.py, runs last:
      routing compared first (at most 1% may differ), last-token logits
      within 1e-4 in every prompt whose routings all agree (one at least);
      (b) decode against forward over 8 steps within 1e-4; (c) finite
-     logits, tokens below padded_vocab;
+     logits, tokens below padded_vocab. Then qwen3-moe's layer 0 at the
+     prefill shape routed in 2 groups a chunk (the reference's dp = 2 on
+     a data mesh; `_moe_core(groups=2)`, one rank having no mesh: 2 x
+     4,096 tokens, cap 320) against two dp = 1 calls on the batch's
+     halves: each chunk's experts, slot tables, slots and expert counts
+     bitwise, the output within 2e-2 (bf16), timed beside the dp = 1
+     layer;
  14. bert4rec serving at its full config (`phase_bert4rec`: 1,000,000
      items, a 1,000,192 x 64 fp32 table, 2 blocks, 2 heads, 200 slots;
      params drawn on the card): serve_p99, `score_all_items` of the first
@@ -249,9 +255,10 @@ steps of launch/steps.py, runs last:
      process group: `pagerank_device(group=...)` bitwise the group-less
      one in both modes on bench_shard's 3M power-law edges, and
      `compressed_psum_tree` over (d)'s gradient tree bitwise the local
-     int8 round trip; (g) one dry-run cell (gin-tu x full_graph_sm, the
-     16 x 16 mesh of a fake world of 256) in a subprocess started first,
-     status "ok".
+     int8 round trip; (g) two dry-run cells (gin-tu x full_graph_sm and
+     equiformer-v2 x minibatch_lg, psw_ring, on the 16 x 16 mesh of a fake
+     world of 256) in one subprocess started first, status "ok" each,
+     EquiformerV2's ring hops counted as collective-permute bytes.
 
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 1-2 for frontier_expand, phase 6's aggregation calls for
@@ -2746,6 +2753,58 @@ def moe_layer_vs_bound(torch, tf, params, cfg, batch: int, seq: int, dev,
     return res
 
 
+def moe_groups_vs_halves(torch, tf, params, cfg, batch: int, seq: int,
+                         dev, seed: int, reps: int, dp1_ms: float) -> dict:
+    """Layer 0's `moe_mlp` on `moe_layer_vs_bound`'s input with each
+    chunk routed in 2 groups (`_moe_core`'s grouped routine at groups=2,
+    as a 2-way data mesh routes; one rank has no mesh) against two dp = 1
+    calls on the batch's halves: per chunk the experts, slot tables, slots
+    and expert counts of `route_groups` bitwise, the output within 2e-2
+    (bf16). Timed with CUDA events beside the dp = 1 layer's `dp1_ms`."""
+    import functools
+    mo, d, half = cfg.moe, cfg.d_model, batch // 2
+    lp = {k: v[0] for k, v in params["layers"]["mlp"].items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    h = torch.randn((batch, seq, d), generator=gen, device=dev).to(
+        cfg.compute_dtype)
+    chunk = tf.MOE_SEQ_CHUNK
+    if not (seq > chunk and seq % chunk == 0):
+        chunk = seq
+    real = tf._moe_core
+    with torch.no_grad():
+        tf._moe_core = functools.partial(real, groups=2)
+        try:
+            out2, aux2 = tf.moe_mlp(lp, h, cfg)
+            ms = cuda_ms(torch, lambda: tf.moe_mlp(lp, h, cfg), reps)
+        finally:
+            tf._moe_core = real
+        out1 = torch.cat([tf.moe_mlp(lp, h[:half], cfg)[0],
+                          tf.moe_mlp(lp, h[half:], cfg)[0]])
+        tg = half * chunk
+        cap = tf.moe_capacity(mo, tg)
+        same = True
+        for c in range(0, seq, chunk):
+            xc = h[:, c:c + chunk]
+            both = tf.route_groups(lp["router"], xc.reshape(2, tg, d), mo,
+                                   cap)
+            for g in range(2):
+                alone = tf.route_groups(lp["router"], xc[g * half:(
+                    g + 1) * half].reshape(1, tg, d), mo, cap)
+                same &= all(torch.equal(both[i][g], alone[i][0])
+                            for i in (0, 1, 2, 4))
+        err = float((out2.float() - out1.float()).abs().max())
+        close = torch.allclose(out2.float(), out1.float(), rtol=2e-2,
+                               atol=2e-2)
+    res = {"groups": 2, "tokens_a_group": tg, "cap": cap,
+           "routing_bitwise": bool(same), "max_abs_err": err,
+           "aux": float(aux2), "ms": ms, "dp1_ms": dp1_ms}
+    check(same, f"dp = 2 routing differs from two dp = 1 calls: {res}")
+    check(close and bool(torch.isfinite(out2).all()),
+          f"dp = 2 MoE layer vs two dp = 1 calls beyond 2e-2: {res}")
+    return res
+
+
 def moe_gates(torch, fa, fa_kernel, tf, cfg, dev, args) -> dict:
     """Phase 13's gates on a 2-layer fp32 cut of `cfg` at full width and
     capacity factor E/K, where no token is dropped, so a routing that
@@ -2905,6 +2964,13 @@ def phase_moe(torch, dev, args, clock, fa_kernel) -> dict:
             max(2, args.reps // 4))
         log("  one MoE layer at the prefill shape: "
             + json.dumps(out["moe_layer"]))
+        if arch == MOE_ARCHS[0]:
+            out["moe_layer_dp2"] = moe_groups_vs_halves(
+                torch, tf, params, cfg, B, P, dev, args.seed + 42,
+                max(2, args.reps // 4), out["moe_layer"]["ms"])
+            log("  the same layer routed in 2 groups a chunk (dp = 2) vs "
+                "two dp = 1 calls on the halves: "
+                + json.dumps(out["moe_layer_dp2"]))
         del params
         torch.cuda.empty_cache()
         if arch == MOE_ARCHS[0]:
@@ -3954,18 +4020,23 @@ def cell_collectives(torch, core, dev, args, grads) -> dict:
     return res
 
 
+DRYRUN_CELLS = (("gin-tu", "full_graph_sm"),
+                ("equiformer-v2", "minibatch_lg"))
+
+
 def start_dryrun():
-    """16g's subprocess, started first: one dry-run cell (gin-tu x
-    full_graph_sm on the single-pod mesh of a fake world of 256) in its
-    own interpreter on the host."""
+    """16g's subprocess, started first: the DRYRUN_CELLS on the
+    single-pod mesh of a fake world of 256, one after the other in one
+    interpreter on the host."""
     out = os.path.join(ROOT, "build", "dryrun_phase")
     os.makedirs(out, exist_ok=True)
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-           "gin-tu", "--shape", "full_graph_sm", "--mesh", "single", "--out",
-           out]
+    code = ("import sys\nfrom repro_torch.launch import dryrun\n"
+            "for arch, shape in %r:\n"
+            "    dryrun.main(['--arch', arch, '--shape', shape, '--mesh', "
+            "'single', '--out', sys.argv[1]])\n" % (DRYRUN_CELLS,))
     env = {**os.environ, "PYTHONPATH": SRC}
-    return out, subprocess.Popen(cmd, cwd=ROOT, env=env,
-                                 stdout=subprocess.PIPE,
+    return out, subprocess.Popen([sys.executable, "-c", code, out],
+                                 cwd=ROOT, env=env, stdout=subprocess.PIPE,
                                  stderr=subprocess.PIPE, text=True)
 
 
@@ -3977,16 +4048,23 @@ def finish_dryrun(out, proc) -> dict:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    path = os.path.join(out, "gin-tu__full_graph_sm__single.json")
-    check(proc.returncode == 0 and os.path.exists(path),
-          f"16g: the dry-run failed: {err[-2000:]}")
-    with open(path) as fh:
-        rec = json.load(fh)
+    check(proc.returncode == 0, f"16g: the dry-run failed: {err[-2000:]}")
+    res = {}
+    for arch, shape in DRYRUN_CELLS:
+        path = os.path.join(out, f"{arch}__{shape}__single.json")
+        check(os.path.exists(path), f"16g: no record of {arch} x {shape}")
+        with open(path) as fh:
+            rec = json.load(fh)
+        check(rec.get("status") == "ok",
+              f"16g: {arch} x {shape} dry-run status {rec}")
+        res[f"{arch} x {shape}"] = {k: rec[k] for k in (
+            "status", "n_devices", "compile_s", "flops_per_device",
+            "collective_bytes_by_kind", "collective_op_counts")}
     shutil.rmtree(out, ignore_errors=True)
-    check(rec.get("status") == "ok", f"16g: dry-run status {rec}")
-    return {k: rec[k] for k in ("status", "n_devices", "compile_s",
-                                "flops_per_device",
-                                "collective_bytes_by_kind")}
+    ring = res["equiformer-v2 x minibatch_lg"]["collective_bytes_by_kind"]
+    check(ring.get("collective-permute", 0) > 0,
+          f"16g: the psw_ring cell counted no collective-permute: {ring}")
+    return res
 
 
 def phase_cells(torch, core, ps, ps_kernel, dev, args, clock) -> dict:

@@ -38,9 +38,18 @@ What differs from the reference's record, and why:
   can run (the only place a kernel's plain version runs off the CPU):
   flash_attention's forward and its recomputing backward, and decode
   attention, for `attention_expanded`; GIN's
-  psw_spmm neighbour sum for the reference's masked scatter, the LM
-  loss's label gather for a masked sum, and the zero KV cache for one
-  placed by the rules. The models keep one path.
+  psw_spmm neighbour sum and EquiformerV2's take-mode message scatter
+  (whose layouts pick the live edges with `nonzero`) for the reference's
+  masked scatter, the LM loss's label gather for a masked sum, and the
+  zero KV cache for one placed by the rules. The models keep one path.
+- EquiformerV2's psw_ring mode runs on each device's local shard (its
+  batch is one rank's rows and edges), and the PSW ring's P2P hop, which
+  has no meta backend, becomes `repro_dryrun::collective_permute`: a
+  shape-only op counted as a collective-permute of the shard's bytes,
+  one a hop, as the ring issues its sends on the card. The ring skips the
+  reference's last forward hop (the shard would go nowhere), so a
+  gather issues P - 1 hops forward and P backward where the reference's
+  loop issues P and P.
 
 `parse_collective_bytes` reads XLA HLO, which the port never produces; it
 stays in the reference.
@@ -79,6 +88,7 @@ _NOTES = [
 
 def _collective_kinds():
     import torch
+    _permute_op()
     native = torch.ops._c10d_functional
     c10d = torch.ops.c10d
     kinds = {
@@ -100,8 +110,28 @@ def _collective_kinds():
         c10d.send: "collective-permute",
         c10d.recv_: "collective-permute",
         c10d.broadcast_: "broadcast",
+        torch.ops.repro_dryrun.collective_permute: "collective-permute",
     }
     return kinds
+
+
+def _permute_op():
+    """`repro_dryrun::collective_permute(t, to, frm)`: send t to rank `to`
+    and receive its like from `frm`, as the PSW ring's `_shift` does, for
+    meta tensors only (a shape, no data). The counter records each call
+    as a collective-permute of t's bytes."""
+    import torch
+    if not hasattr(torch.ops.repro_dryrun, "collective_permute"):
+        @torch.library.custom_op("repro_dryrun::collective_permute",
+                                 mutates_args=())
+        def permute(t: torch.Tensor, to: int, frm: int) -> torch.Tensor:
+            raise NotImplementedError("the dry-run's collective-permute "
+                                      "takes meta tensors only")
+
+        @permute.register_fake
+        def _(t, to, frm):
+            return torch.empty_like(t)
+    return torch.ops.repro_dryrun.collective_permute
 
 
 def _nbytes(tree) -> int:
@@ -284,13 +314,66 @@ def _neighbour_summer(batch, n: int, device):
     return lambda x: scatter_sum(x[src] * emask.to(x.dtype), dst, n)
 
 
+def _message_scatterer(emask, dst, chunks, n: int, device):
+    """EquiformerV2's message scatter in the reference's form,
+    scatter_sum(msg * edge_mask, dst) a chunk: no row layout, which picks
+    the live edges by their values (`nonzero`)."""
+    from ..graph.segment_ops import scatter_sum
+
+    def scatter(msg, c):
+        sl = chunks[c]
+        return scatter_sum(msg * emask[sl].to(msg.dtype)[:, None, None],
+                           dst[sl], n)
+
+    return scatter
+
+
+def _shift(t, to: int, frm: int):
+    """The PSW ring's hop (`psw_ops._shift`) on a meta tensor."""
+    return _permute_op()(t.contiguous(), to, frm)
+
+
+def _ring_forward(forward):
+    """EquiformerV2's forward with psw_ring mode on each device's shard.
+    That mode takes a rank's rows and edges (the model's docstring), so the
+    batch's DTensors are cut into their local shards along the ring (dim 0
+    split over every mesh dim, the flattened mesh the reference's
+    `ring_mesh` makes) and the replicated params taken whole, their
+    gradients summed over the devices; the rows come back as the nodes'
+    shards. Every other mode, and plain tensors, run as they are."""
+    def dry_forward(params, batch, cfg, ring=None):
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+        from torch.utils import _pytree as pytree
+        pos = batch["pos"]
+        if cfg.gather_mode != "psw_ring" or not isinstance(pos, DTensor):
+            return forward(params, batch, cfg, ring)
+        mesh = pos.device_mesh
+        rows = (Shard(0),) * mesh.ndim
+
+        def local(t, pl, grad_pl):
+            if not isinstance(t, DTensor):
+                return t
+            return t.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+        params = pytree.tree_map(
+            lambda t: local(t, (Replicate(),) * mesh.ndim,
+                            (Partial(),) * mesh.ndim), params)
+        batch = {k: local(v, rows, rows) for k, v in batch.items()}
+        return DTensor.from_local(forward(params, batch, cfg, ring), mesh,
+                                  rows, run_check=False)
+
+    return dry_forward
+
+
 @contextlib.contextmanager
 def dry_paths():
     """Swap the model modules' kernel calls and data-bound steps for the
     dry-run's meta-DTensor forms (module docstring) while the block runs."""
+    from ..graph import psw_ops
     from ..kernels.flash_attention import ops as fa_ops
     from ..models import transformer
-    from ..models.gnn import gin
+    from ..models.gnn import equiformer_v2, gin
     swaps = [
         (fa_ops, "_forward", attention_expanded),
         (fa_ops, "_backward", _attention_backward),
@@ -299,6 +382,9 @@ def dry_paths():
         (transformer, "label_logits", _label_logits),
         (transformer, "init_cache", _init_cache),
         (gin, "neighbour_summer", _neighbour_summer),
+        (equiformer_v2, "message_scatterer", _message_scatterer),
+        (equiformer_v2, "forward", _ring_forward(equiformer_v2.forward)),
+        (psw_ops, "_shift", _shift),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:

@@ -56,7 +56,7 @@ from ...sharding import constrain
 from .common import init_mlp, mlp_apply, param_device
 from .wigner import blockdiag_apply, irreps_dim, rotation_to_z, wigner_rotations
 
-__all__ = ["EquiformerV2Config", "forward", "init_params"]
+__all__ = ["EquiformerV2Config", "forward", "init_params", "message_scatterer"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,6 +205,26 @@ def _remat(fn, *args):
     return fn(*args)
 
 
+def message_scatterer(emask, dst, chunks, n: int, device):
+    """scatter(msg, c): edge chunk c's messages (Ec, K, C) summed into
+    their destination rows, (n, K, C), on psw_spmm. One `prepare_rows`
+    layout a chunk, built here, once a forward: rows the destinations
+    `dst` (rank-local in psw_ring mode), sources the chunk's live edges
+    (`emask`), so a masked edge's message reaches nothing."""
+    layouts = []
+    for sl in chunks:
+        live = torch.nonzero(emask[sl]).flatten()
+        layouts.append(prepare_rows(live, dst[sl][live], n, device=device,
+                                    n_src=sl.stop - sl.start))
+
+    def scatter(msg, c):
+        m, K, C = msg.shape
+        return psw_spmm_rows(layouts[c], msg.reshape(m, K * C)).reshape(
+            n, K, C)
+
+    return scatter
+
+
 def forward(params, batch, cfg: EquiformerV2Config, ring=None):
     """batch: species (N,) int, pos (N, 3), src/dst (E,), edge_mask,
     node_mask. Returns (N, d_out) invariant predictions. In psw_ring mode
@@ -259,17 +279,7 @@ def forward(params, batch, cfg: EquiformerV2Config, ring=None):
 
     Ec = E // nc
     chunks = [slice(c * Ec, (c + 1) * Ec) for c in range(nc)]
-    # the scatter's layouts: rows the (rank-local) destinations, sources
-    # each chunk's live edges
-    layouts = []
-    for sl in chunks:
-        live = torch.nonzero(emask[sl]).flatten()
-        layouts.append(prepare_rows(live, d_loc[sl][live], n, device=dev,
-                                    n_src=Ec))
-
-    def scatter(msg, layout):
-        return psw_spmm_rows(layout, msg.reshape(msg.shape[0], K * C)
-                             ).reshape(n, K, C)
+    scatter = message_scatterer(emask, d_loc, chunks, n, dev)
 
     def layer(x, lp):
         # gather once per layer: remote sources via the PSW ring; local
@@ -307,13 +317,13 @@ def forward(params, batch, cfg: EquiformerV2Config, ring=None):
 
         if nc == 1:
             msg = _edge_messages(xs_all, lp, cfg, mats, rbf, alpha)
-            return scatter(msg, layouts[0])
+            return scatter(msg, 0)
         agg = torch.zeros((n, K, C), dtype=torch.float32, device=dev)
-        for sl, layout in zip(chunks, layouts):
+        for c, sl in enumerate(chunks):
             msg = _remat(lambda *a: _edge_messages(a[0], lp, cfg, *a[1:]),
                          xs_all[sl], [m[sl] for m in mats], rbf[sl],
                          alpha[sl])
-            agg = agg + scatter(msg, layout)
+            agg = agg + scatter(msg, c)
         return agg
 
     def full_layer(x, lp):

@@ -24,16 +24,20 @@ its product. `cast_params` casts the whole tree once, which gives the same
 values, because each cast is deterministic.
 
 MoE (`moe_mlp`, `_moe_core`) is the reference's sort-based GShard dispatch
-on one device (no mesh: one token group, dp = 1). The router runs in
+by data-parallel group: the B·S tokens split into dp groups, dp the
+product of the active mesh's `pod` and `data` sizes (1 with no mesh or
+when it does not divide B), each group routed, capped and combined on its
+own, on the rank that holds it (`route_groups`). The router runs in
 `router_dtype` (fp32, TF32 off as torch's matmul default), top-k over its
 softmax, a stable argsort of the chosen experts, each token's position in
 its expert's run by a left `searchsorted`; pairs past the capacity go to a
-spare slot that is sliced off, and empty slots gather token 0 with gate 0,
-so the expert FFN runs on x[0] there and its output is multiplied by 0.
-The expert products are batched matmuls in the compute dtype, outside any
-hand-written kernel as in the reference. The combine is a token-major sum:
-each token adds its own slots in ascending slot order, starting from 0, and
-token 0 adds the empty slots' zero-gated rows too; that is the order of the
+spare slot that is sliced off, and empty slots gather the group's token 0
+with gate 0, so the expert FFN runs on it there and its output is
+multiplied by 0. The expert products are batched matmuls in the compute
+dtype over all groups' slots, outside any hand-written kernel as in the
+reference. The combine is a token-major sum within each group: each token
+adds its own slots in ascending slot order, starting from 0, and a group's
+token 0 adds its empty slots' zero-gated rows too; that is the order of the
 reference's `segment_sum` on its CPU, and it is deterministic on the card,
 where `index_add_` would add with atomics in an order that varies run to
 run. Sequences longer than 2,048 tokens, and a multiple of it, are routed
@@ -63,7 +67,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..core.multihop import _resolve_device
 from ..kernels.flash_attention import attention_chunked, flash_attention
-from ..sharding import constrain, unflatten
+from ..sharding import constrain, current_rules, unflatten
 
 __all__ = [
     "MoEConfig",
@@ -82,12 +86,14 @@ __all__ = [
     "layer_fn",
     "loss_fn",
     "moe_capacity",
+    "moe_groups",
     "moe_mlp",
     "param_logical_axes",
     "prefill",
     "qkv",
     "rms_norm",
     "rope",
+    "route_groups",
     "route_tokens",
 ]
 
@@ -267,7 +273,8 @@ def moe_mlp(params, x, cfg: TransformerConfig):
     A sequence longer than 2,048 tokens and a multiple of it is routed in
     chunks of 2,048 (all B rows of a chunk together, each chunk with its own
     capacity), and aux is the mean over the chunks, as the reference's
-    scan does."""
+    scan does. Each chunk's tokens are routed by data-parallel group
+    (`_moe_core`)."""
     B, S, d = x.shape
     if S > MOE_SEQ_CHUNK and S % MOE_SEQ_CHUNK == 0:
         outs, auxes = [], []
@@ -287,14 +294,62 @@ def moe_capacity(mo: MoEConfig, tokens: int) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
+def moe_groups(batch: int) -> int:
+    """The reference's routing groups: the product of the active mesh's
+    `pod` and `data` sizes, or 1 with no mesh or when it does not divide
+    the batch."""
+    mesh = current_rules().mesh
+    dp = 1
+    if mesh is not None:
+        names = list(mesh.mesh_dim_names)
+        for ax in ("pod", "data"):
+            if ax in names:
+                dp *= mesh.size(names.index(ax))
+    return dp if batch % dp == 0 else 1
+
+
 def route_tokens(router: torch.Tensor, xg: torch.Tensor, mo: MoEConfig):
-    """The router: xg (t, d) -> (probs (t, E), gates (t, K) renormalised,
-    idx (t, K) the experts, best first), all in `mo.router_dtype`."""
+    """The router: xg (..., d) -> (probs (..., E), gates (..., K)
+    renormalised, idx (..., K) the experts, best first), all in
+    `mo.router_dtype`."""
     rdt = mo.router_dtype
     probs = torch.softmax(xg.to(rdt) @ router.to(rdt), dim=-1)
     gates, idx = torch.topk(probs, mo.top_k, dim=-1)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     return probs, gates, idx
+
+
+def route_groups(router: torch.Tensor, xt: torch.Tensor, mo: MoEConfig,
+                 cap: int):
+    """Route each group of xt (G, tg, d) on its own into (E, cap) slots.
+    Returns (idx (G, tg, K) the experts, tfs (G, E·cap) each slot's token
+    in its group, slots (G, tg, K) each token's slots ascending, gates
+    (G, tg, K) theirs, counts (G, E) each expert's pairs, me (G, E) the
+    mean router probabilities, ce (G, E) the chosen share)."""
+    G, tg, _ = xt.shape
+    E, K = mo.n_experts, mo.top_k
+    dev = xt.device
+    probs, gates, idx = route_tokens(router, xt, mo)
+    expert_of = idx.reshape(G, tg * K)
+    order = torch.argsort(expert_of, dim=-1, stable=True)
+    sorted_e = expert_of.gather(1, order)
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(E + 1, device=dev).expand(G, E + 1)
+        .contiguous())
+    counts = seg_start[:, 1:] - seg_start[:, :-1]
+    ce = counts.to(probs.dtype) / (tg * K)
+
+    pos_in_e = torch.arange(tg * K, device=dev) - seg_start.gather(1,
+                                                                   sorted_e)
+    ok = pos_in_e < cap
+    slot = torch.where(ok, sorted_e * cap + pos_in_e, E * cap)
+    # invert slot -> token; every dropped pair lands on its group's spare
+    # slot E·cap
+    tfs = order.new_zeros(G, E * cap + 1).scatter_(1, slot, order // K)
+    slots = order.new_empty(G, tg * K).scatter_(1, order, slot)
+    slots, by_slot = slots.reshape(G, tg, K).sort(dim=-1)
+    return (idx, tfs[:, :E * cap], slots, gates.gather(-1, by_slot), counts,
+            probs.mean(1), ce)
 
 
 def expert_ffn(params, ein: torch.Tensor, cdt) -> torch.Tensor:
@@ -305,60 +360,90 @@ def expert_ffn(params, ein: torch.Tensor, cdt) -> torch.Tensor:
     return torch.bmm(F.silu(g) * u, params["w_down"].to(cdt))
 
 
-def _moe_core(params, x, cfg: TransformerConfig):
-    """One token group (the reference's dp = 1): route, dispatch into
-    (E, cap) slots, the expert FFN, combine."""
+def _by_rank(fn, n_out: int, rows, shared=()):
+    """fn(*rows, *shared) on this rank's share of the routing groups.
+    Plain tensors: fn itself. DTensors: `local_map`, every `rows` tensor
+    and output with the first one's placements (its dim 0 the groups, so
+    a rank routes its own, with no collective), each `shared` tensor
+    replicated in and its gradient summed over the ranks that split the
+    groups."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(rows[0], DTensor):
+        return fn(*rows, *shared)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(rows[0].placements)
+    rep = (Replicate(),) * len(pl)
+    summed = tuple(Partial() if p.is_shard(0) else Replicate() for p in pl)
+    return local_map(
+        fn, out_placements=(pl,) * n_out,
+        in_placements=(pl,) * len(rows) + (rep,) * len(shared),
+        in_grad_placements=(pl,) * len(rows) + (summed,) * len(shared),
+        redistribute_inputs=True)(*rows, *shared)
+
+
+def _moe_core(params, x, cfg: TransformerConfig,
+              groups: Optional[int] = None):
+    """The reference's local-capacity dispatch: the B·S tokens in `groups`
+    groups of B·S / groups (None: `moe_groups(B)`, the mesh's), each routed,
+    capped at moe_capacity(tg) and combined on its own, then the expert
+    FFN over all groups at once. On a mesh each rank routes and combines
+    its own groups (`_by_rank`); one group is the plain GShard dispatch."""
     mo = cfg.moe
     B, S, d = x.shape
-    t, E, K = B * S, mo.n_experts, mo.top_k
+    E, K = mo.n_experts, mo.top_k
     cdt = cfg.compute_dtype
-    dev = x.device
-    cap = moe_capacity(mo, t)
-    xg = x.reshape(t, d)
+    dp = moe_groups(B) if groups is None else groups
+    if B % dp:
+        raise ValueError(f"{dp} routing groups do not split a batch of {B}")
+    tg = B * S // dp
+    cap = moe_capacity(mo, tg)
+    x = constrain(x, "batch", None, None)
 
-    probs, gates, idx = route_tokens(params["router"], xg, mo)
-    expert_of = idx.reshape(-1)                              # (t·K,)
-    order = torch.argsort(expert_of, stable=True)
-    sorted_e = expert_of[order]
-    seg_start = torch.searchsorted(sorted_e, torch.arange(E + 1, device=dev))
-    counts = seg_start[1:] - seg_start[:-1]
-    ce = counts.to(probs.dtype) / (t * K)
-    aux = mo.aux_coef * E * torch.sum(probs.mean(0) * ce)
+    def route(x_loc, router):
+        xt = x_loc.reshape(-1, tg, d)                 # this rank's groups
+        idx, tfs, slots, gates, counts, me, ce = route_groups(router, xt,
+                                                              mo, cap)
+        base = torch.arange(xt.shape[0], device=xt.device)[:, None] * tg
+        ein = xt.to(cdt).reshape(-1, d)[tfs + base]
+        return ein.reshape(-1, E, cap, d), slots, gates, counts, me, ce
 
-    pos_in_e = torch.arange(t * K, device=dev) - seg_start[sorted_e]
-    ok = pos_in_e < cap
-    slot = torch.where(ok, sorted_e * cap + pos_in_e, E * cap)
-    # invert slot -> token; every dropped pair lands on the spare slot E·cap
-    # factories from the routed tensors: DTensors in the dry-run, where an
-    # in-place write into a plain tensor cannot take DTensor values
-    tfs = order.new_zeros(E * cap + 1)
-    tfs[slot] = order // K
-    tfs = tfs[:E * cap]
-
-    # one token group: the reference's (dp, ...) constraints without dp
+    ein, slots, gates, counts, me, ce = _by_rank(route, 6, (x,),
+                                                 (params["router"],))
+    aux = mo.aux_coef * E * torch.sum(me.mean(0) * ce.mean(0))
     exp_ax = "experts" if mo.ep_mode == "expert" else None
-    ein = constrain(xg.to(cdt)[tfs].reshape(E, cap, d), exp_ax, None, None)
-    eout = constrain(expert_ffn(params, ein, cdt), exp_ax, None, None)
-    eout = eout.reshape(E * cap, d)
+    ein = constrain(ein, "batch", exp_ax, None, None)     # (dp, E, cap, d)
+    # the groups' slots of an expert side by side: one product an expert
+    eout = expert_ffn(params, ein.transpose(0, 1).reshape(E, dp * cap, d),
+                      cdt)
+    eout = constrain(eout.reshape(E, dp, cap, d).transpose(0, 1), "batch",
+                     exp_ax, None, None)
 
-    # combine: each token's slots in ascending slot order, each row times
-    # its pair's gate; a dropped pair (slot E·cap, which sorts last) adds 0
-    slots = order.new_empty(t * K)
-    slots[order] = slot
-    slots, by_slot = slots.reshape(t, K).sort(dim=1)
-    pair_gates = gates.to(cdt).gather(1, by_slot)
-    dropped = slots == E * cap
-    slots = slots.clamp(max=E * cap - 1)
-    out = xg.new_zeros((t, d), dtype=cdt)
-    for j in range(K):
-        rows = eout[slots[:, j]] * pair_gates[:, j, None]
-        out = out + rows.masked_fill_(dropped[:, j, None], 0)
-    # the empty slots' zero-gated rows belong to token 0: 0, or NaN when
-    # an expert with an empty slot (its last one is then empty) gave a
-    # non-finite FFN of x[0]
-    last = eout.reshape(E, cap, d)[:, -1] * 0
-    out[0] = out[0] + torch.where((counts < cap)[:, None], last, 0).sum(0)
-    return constrain(out, "batch", None).reshape(B, S, d), aux
+    def combine(slots, gates, counts, eout):
+        # each token's slots in ascending slot order, each row times its
+        # pair's gate; a dropped pair (slot E·cap, which sorts last) adds 0
+        G = eout.shape[0]
+        dropped = slots == E * cap
+        base = torch.arange(G, device=eout.device)[:, None, None] * (E * cap)
+        rows_of = (slots.clamp(max=E * cap - 1) + base).reshape(G * tg, K)
+        dropped = dropped.reshape(G * tg, K)
+        gates = gates.to(cdt).reshape(G * tg, K)
+        flat = eout.reshape(G * E * cap, d)
+        out = flat.new_zeros((G * tg, d))
+        for j in range(K):
+            rows = flat[rows_of[:, j]] * gates[:, j, None]
+            out = out + rows.masked_fill_(dropped[:, j, None], 0)
+        # a group's empty slots' zero-gated rows belong to its token 0: 0,
+        # or NaN when an expert with an empty slot (its last one is then
+        # empty) gave a non-finite FFN of that token
+        out = out.reshape(G, tg, d)
+        last = eout[:, :, -1] * 0                             # (G, E, d)
+        out[:, 0] = out[:, 0] + torch.where((counts < cap)[..., None], last,
+                                            0).sum(1)
+        return out.reshape(-1, S, d)
+
+    out = _by_rank(combine, 1, (slots, gates, counts, eout))
+    return constrain(out, "batch", None, None), aux
 
 
 def layer_fn(params, x, cfg: TransformerConfig, positions, kv_cache=None,

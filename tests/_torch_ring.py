@@ -179,6 +179,40 @@ def compressed_psum_shard(rank, world, grads, residuals):
             {k: v.numpy() for k, v in new_r.items()})
 
 
+def moe_groups_shard(rank, world, arch, cf, arrays, x):
+    """This rank's rows of `moe_mlp` on a (data = world, model = 1) mesh:
+    x (B, S, d) Shard(0) over `data`, the layer's params replicated, under
+    the default rules; with the balance loss and the collectives counted
+    by kind (`dryrun.CollectiveCounter`)."""
+    import dataclasses
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import CollectiveCounter
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import DEFAULT_RULES, ShardingRules, use_rules
+    cfg = configs.get_arch(arch).smoke_config
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+    mesh = init_device_mesh("cpu", (world, 1),
+                            mesh_dim_names=("data", "model"))
+    rep = (Replicate(), Replicate())
+    lp = {k: DTensor.from_local(torch.from_numpy(v), mesh, rep)
+          for k, v in arrays.items()}
+    rows = x.shape[0] // world
+    xd = DTensor.from_local(
+        torch.from_numpy(x[rank * rows:(rank + 1) * rows]), mesh,
+        (Shard(0), Replicate()))
+    with use_rules(ShardingRules(dict(DEFAULT_RULES), mesh)), \
+            CollectiveCounter() as counter:
+        out, aux = tf.moe_mlp(lp, xd, cfg)
+    return {"rows": out.to_local().numpy(),
+            "placements": str(out.placements),
+            "aux": float(aux.full_tensor()),
+            "counts": dict(counter.counts)}
+
+
 def reference_subprocess(code, *argv, devices=4, timeout=300):
     """Run `code` (a script that imports the reference) in a fresh
     interpreter on `devices` host devices (jax fixes its device count at

@@ -7,9 +7,12 @@ Held here: the record has the reference's keys (read from the reference's
 exactly one all-gather of the gathered shard's bytes and the local
 product's FLOPs; smoke-config cells of each family run to status "ok" on
 fake worlds of 8 (2 x 4 and 2 x 2 x 2, the production meshes' axis names);
-the CLI writes a record, a skipped cell says why, and a cell the port
-cannot run records "error" with the op named. The process group is
-destroyed after each test."""
+EquiformerV2's psw_ring cell counts the ring's hops as
+collective-permutes of the shards' bytes, and a MoE cell replicates no
+routing op (each device routes its own groups); the CLI writes a record,
+a skipped cell says why, and a cell that reaches an op with no meta form
+records "error" with the op named. The process group is destroyed after
+each test."""
 import ast
 import inspect
 import json
@@ -81,7 +84,13 @@ CELLS = [("granite-3-2b", "train_4k", "single", (2, 4)),
          ("qwen3-moe-235b-a22b", "prefill_32k", "single", (2, 4)),
          ("bert4rec", "serve_p99", "single", (2, 4)),
          ("gin-tu", "ogb_products", "single", (2, 4)),
-         ("meshgraphnet", "full_graph_sm", "single", (2, 4))]
+         ("meshgraphnet", "full_graph_sm", "single", (2, 4)),
+         ("equiformer-v2", "molecule", "single", (2, 4)),
+         ("equiformer-v2", "minibatch_lg", "single", (2, 4))]
+# the MoE routing's ops: none may run replicated
+ROUTING_OPS = {"aten.searchsorted.Tensor", "aten.sort.stable",
+               "aten.topk.default", "aten.scatter.src",
+               "aten.gather.default", "aten.index.Tensor"}
 
 
 @pytest.mark.parametrize("arch,shape,kind,mesh_shape", CELLS)
@@ -105,6 +114,32 @@ def test_smoke_cells_run_with_the_reference_record(world, arch, shape, kind,
         assert rec["memory"][k] is None
     assert rec["hlo_size_chars"] is None and rec["notes"]
     json.dumps(rec)                       # the record is JSON
+    if arch.startswith("qwen3-moe"):
+        assert not ROUTING_OPS & set(rec["replicated_ops"]), rec
+    if shape == "minibatch_lg":           # psw_ring
+        assert rec["collective_bytes_by_kind"]["collective-permute"] > 0
+
+
+def test_the_psw_ring_cell_counts_its_hops(world):
+    """EquiformerV2 x minibatch_lg runs psw_ring over the flattened mesh
+    of P = 8 devices, one shard of n / P rows each. Its train step issues
+    P - 1 hops of the positions' fp32 shard; in each of its L layers, P -
+    1 hops of x's bfloat16 shard in the forward and again in the layer's
+    recompute (remat), and P hops of the float32 gradient buffer in the
+    backward; nothing else is a collective-permute."""
+    rec = dryrun.run_cell("equiformer-v2", "minibatch_lg", "single",
+                          config="smoke", mesh_shape=(2, 4))
+    from repro_torch.configs import get_arch
+    cfg = get_arch("equiformer-v2").smoke_config
+    P, L, C = 8, cfg.n_layers, cfg.d_hidden
+    K = (cfg.l_max + 1) ** 2
+    n_loc = rec["meta"]["n_nodes"] // P
+    shard = n_loc * K * C
+    hops = (P - 1) + L * (2 * (P - 1) + P)
+    assert rec["collective_op_counts"]["collective-permute"] == hops
+    assert rec["collective_bytes_by_kind"]["collective-permute"] == (
+        (P - 1) * n_loc * 3 * 4 + L * (2 * (P - 1) * shard * 2
+                                       + P * shard * 4))
 
 
 def test_skipped_cell_says_why():
@@ -113,13 +148,22 @@ def test_skipped_cell_says_why():
         "skip_reason"]
 
 
-def test_an_unportable_cell_records_the_op(world, tmp_path, capsys):
-    """EquiformerV2 picks its live edges with `nonzero`, which has no meta
-    DTensor form: the record says error and names it."""
+def test_an_unportable_cell_records_the_op(world, tmp_path, capsys,
+                                          monkeypatch):
+    """A model step that reaches `nonzero`, which has no meta DTensor form
+    (here GIN's neighbour sum, patched to pick its live messages with it):
+    the record says error and names the op."""
+    import torch
+    from repro_torch.graph import segment_ops
+
+    def picks_live_rows(msgs, dst, n_nodes, sorted_=False):
+        return msgs[torch.nonzero(dst).flatten()]
+
+    monkeypatch.setattr(segment_ops, "scatter_sum", picks_live_rows)
     with pytest.raises(SystemExit):
-        dryrun.main(["--arch", "equiformer-v2", "--shape", "molecule",
+        dryrun.main(["--arch", "gin-tu", "--shape", "full_graph_sm",
                      "--mesh", "single", "--out", str(tmp_path)])
-    with open(tmp_path / "equiformer-v2__molecule__single.json") as f:
+    with open(tmp_path / "gin-tu__full_graph_sm__single.json") as f:
         rec = json.load(f)
     assert rec["status"] == "error" and "nonzero" in rec["error"]
 
