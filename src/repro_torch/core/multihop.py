@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import dataclasses
 import operator
-import time
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -56,7 +55,6 @@ from . import telemetry
 from .engine import StorageEngine, _expand_ranges, as_engine
 
 _M_HOPS = telemetry.counter("multihop.hops")
-_M_HOP_S = telemetry.histogram("multihop.hop.seconds")
 
 GraphLike = Any
 
@@ -388,7 +386,6 @@ def khop(g: GraphLike, seeds, k: int, direction: str = "out",
                          predicate, device)
         with telemetry.span("multihop.hop", hop=hop, mode=mode,
                             frontier=int(frontier.shape[0])) as sp:
-            t0 = time.perf_counter()
             if mode == "kernel":
                 nxt = _expand_dense(eng, frontier, direction, device)
             elif mode == "stream":
@@ -399,7 +396,6 @@ def khop(g: GraphLike, seeds, k: int, direction: str = "out",
             fresh = _setdiff_sorted(nxt, visited)
             sp.tag(fresh=int(fresh.shape[0]))
             _M_HOPS.inc(label=mode)
-            _M_HOP_S.observe(time.perf_counter() - t0)
         if fresh.shape[0] == 0:
             break
         visited = _union_sorted(visited, fresh)
@@ -504,7 +500,13 @@ def _two_hop_dense(eng: StorageEngine, seeds: np.ndarray, direction: str,
     count (float32 counts are integer-exact far below 2**24). Seeds stream
     through in `_SEED_BLOCK`-column panels. Panels, hop 1's counts and the
     binarized panel stay on the device; only nonzero (vertex, column)
-    indices and counts cross to the host."""
+    indices and counts cross to the host.
+
+    Its phases are the spans `x.multihop.*` under `multihop.two_hop`: per
+    block `expand` (host enqueue only), then `readback` and `id_map` in
+    turn for the answer and for the friend set; `assemble` after the last
+    block. None synchronizes: a `readback` lasts as long as the host waits
+    for the block's hops."""
     from ..kernels.frontier_expand import frontier_expand_counts
     plan = dense_plan(eng, direction, device)
     dev = plan.idx.device
@@ -515,36 +517,43 @@ def _two_hop_dense(eng: StorageEngine, seeds: np.ndarray, direction: str,
     sk_parts, cnt_parts, fk_parts = [], [], []
     # each (M, B) panel is freed once consumed: 2 GB at 4M vertices
     for c0 in range(0, S, _SEED_BLOCK):
-        x = _indicator(int(M), si[c0:c0 + _SEED_BLOCK])
-        c1 = frontier_expand_counts(plan, x)            # (M, B) 0/1: edges
-        del x
-        c2 = frontier_expand_counts(plan, (c1 > 0).to(torch.float32))
-        nz = torch.nonzero(c2)
-        cnt = torch.round(c2[nz[:, 0], nz[:, 1]]).to(torch.int64)
-        del c2
-        nz = nz.cpu().numpy()
-        w, j = nz[:, 0], nz[:, 1]
-        cnt_parts.append(cnt.cpu().numpy())
-        wo = np.asarray(iv.to_original(w), np.int64)
-        sk_parts.append((c0 + j) * M + wo)
+        with telemetry.span("x.multihop.expand"):
+            x = _indicator(int(M), si[c0:c0 + _SEED_BLOCK])
+            c1 = frontier_expand_counts(plan, x)        # (M, B) 0/1: edges
+            del x
+            c2 = frontier_expand_counts(plan, (c1 > 0).to(torch.float32))
+        with telemetry.span("x.multihop.readback"):
+            nz = torch.nonzero(c2)
+            cnt = torch.round(c2[nz[:, 0], nz[:, 1]]).to(torch.int64)
+            del c2
+            nz = nz.cpu().numpy()
+            w, j = nz[:, 0], nz[:, 1]
+            cnt_parts.append(cnt.cpu().numpy())
+        with telemetry.span("x.multihop.id_map"):
+            wo = np.asarray(iv.to_original(w), np.int64)
+            sk_parts.append((c0 + j) * M + wo)
         if exclude:
-            fnz = torch.nonzero(c1).cpu().numpy()
-            fk_parts.append((c0 + fnz[:, 1]) * M
-                            + np.asarray(iv.to_original(fnz[:, 0]), np.int64))
+            with telemetry.span("x.multihop.readback"):
+                fnz = torch.nonzero(c1).cpu().numpy()
+            with telemetry.span("x.multihop.id_map"):
+                fk_parts.append(
+                    (c0 + fnz[:, 1]) * M
+                    + np.asarray(iv.to_original(fnz[:, 0]), np.int64))
         del c1
-    if not sk_parts:
-        return _empty_two_hop(seeds)
-    sk = np.concatenate(sk_parts)
-    counts = np.concatenate(cnt_parts)
-    if exclude:
-        fk = np.sort(np.concatenate(fk_parts)) if fk_parts \
-            else np.empty(0, np.int64)
-        selfk = np.arange(S, dtype=np.int64) * M + seeds
-        keep = ~(semijoin(sk, fk) | semijoin(sk, selfk))
-        sk, counts = sk[keep], counts[keep]
-    order = np.argsort(sk)  # (seed, target-id) order, matching sparse
-    sk, counts = sk[order], counts[order]
-    return TwoHopResult(seeds, _csr_offsets(sk // M, S), sk % M, counts)
+    with telemetry.span("x.multihop.assemble"):
+        if not sk_parts:
+            return _empty_two_hop(seeds)
+        sk = np.concatenate(sk_parts)
+        counts = np.concatenate(cnt_parts)
+        if exclude:
+            fk = np.sort(np.concatenate(fk_parts)) if fk_parts \
+                else np.empty(0, np.int64)
+            selfk = np.arange(S, dtype=np.int64) * M + seeds
+            keep = ~(semijoin(sk, fk) | semijoin(sk, selfk))
+            sk, counts = sk[keep], counts[keep]
+        order = np.argsort(sk)  # (seed, target-id) order, matching sparse
+        sk, counts = sk[order], counts[order]
+        return TwoHopResult(seeds, _csr_offsets(sk // M, S), sk % M, counts)
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from . import telemetry
 from .lsm import LSMTree
 from .multihop import _resolve_device
 from .pal import GraphPAL
@@ -554,25 +555,27 @@ def edge_centric_sweep_arrays(
     (Pl = P, one device). Returns (Pl, L, d') sums."""
     if x.ndim == 2:
         x = x[..., None]
-    if mode == "dense_gather":
-        x_all = _gather_all(x, group)                # (P*L, d)
-        src_state = x_all[src]                       # (Pl, E, d)
-    elif mode == "psw_windows":
-        if send_idx is None:
-            raise ValueError("window plan not built: build the DeviceGraph "
-                             "with with_window_plan=True")
-        recv = _exchange_windows(x, send_idx, group)  # (Pl, P, W, d)
-        w = recv.shape[2]
-        flat = recv.reshape(recv.shape[0], -1, x.shape[-1])  # (Pl, P*W, d)
-        idx = (edge_owner * w + edge_slot).long()  # < P*W: no int32 wrap
-        src_state = torch.gather(
-            flat, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
-    else:
-        raise ValueError(mode)
+    with telemetry.span("x.psw.window_gather"):
+        if mode == "dense_gather":
+            x_all = _gather_all(x, group)                # (P*L, d)
+            src_state = x_all[src]                       # (Pl, E, d)
+        elif mode == "psw_windows":
+            if send_idx is None:
+                raise ValueError("window plan not built: build the "
+                                 "DeviceGraph with with_window_plan=True")
+            recv = _exchange_windows(x, send_idx, group)  # (Pl, P, W, d)
+            w = recv.shape[2]
+            flat = recv.reshape(recv.shape[0], -1, x.shape[-1])
+            idx = (edge_owner * w + edge_slot).long()  # < P*W: no wrap
+            src_state = torch.gather(
+                flat, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
+        else:
+            raise ValueError(mode)
     msgs = msg_fn(src_state) * mask[..., None]
     if seg_ptr is None:
         seg_ptr = segment_ptr(dst_local, mask, interval_len)
-    return segment_sum_sorted(msgs, seg_ptr)
+    with telemetry.span("x.psw.segment_sum"):
+        return segment_sum_sorted(msgs, seg_ptr)
 
 
 def edge_centric_sweep(
@@ -597,10 +600,11 @@ def pagerank_device(dg: DeviceGraph, n_iters: int = 5, damping: float = 0.85,
     """PageRank with the device PSW engine. Returns (Pl, L) float32 ranks
     on the DeviceGraph's device: all P intervals' with `group=None`, this
     rank's with a process group (dg then this rank's shard)."""
-    inv_deg = 1.0 / torch.clamp(dg.outdeg.to(torch.float32), min=1.0)
-    r = torch.ones(inv_deg.shape, dtype=torch.float32, device=dg.device)
-    for _ in range(n_iters):
-        contrib = (r * inv_deg)[..., None]           # (Pl, L, 1)
-        acc = edge_centric_sweep(dg, contrib, lambda s: s, mode, group)
-        r = (1.0 - damping) + damping * acc[..., 0]
-    return r
+    with telemetry.span("x.psw.pagerank"):
+        inv_deg = 1.0 / torch.clamp(dg.outdeg.to(torch.float32), min=1.0)
+        r = torch.ones(inv_deg.shape, dtype=torch.float32, device=dg.device)
+        for _ in range(n_iters):
+            contrib = (r * inv_deg)[..., None]           # (Pl, L, 1)
+            acc = edge_centric_sweep(dg, contrib, lambda s: s, mode, group)
+            r = (1.0 - damping) + damping * acc[..., 0]
+        return r

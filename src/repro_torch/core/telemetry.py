@@ -24,7 +24,11 @@ Design constraints, in order:
      `CATALOG` (linted both ways by `scripts/check_metrics.py`, the
      `check_failpoints.py` pattern). Names starting with ``x.`` are the
      caller-owned escape hatch (tests, experiments) and bypass the
-     catalog — they never appear in `src/`.
+     catalog. In the port, ``x.`` also marks its own names, those the
+     reference's catalog lacks: the shared lint checks all of `src/`
+     against the reference's catalog and lets ``x.`` pass, so the port
+     declares these in its CATALOG below and
+     `tests/test_torch_telemetry.py` lints `src/repro_torch/` against it.
 
 Spans are Chrome-trace complete events (`ph: "X"`): wall-clock `ts` in
 microseconds (epoch-based, so router and worker processes align on one
@@ -36,18 +40,33 @@ frame metadata and into maintenance-pool submissions, and `attach()`
 re-establishes it on the far side — one trace stitches a router-side query
 through every shard worker it touched.
 
+Two clocks: the registry's own events keep the epoch `ts` above, which
+the shard router merges across processes. While a `torch.profiler`
+profile records, each span also opens a `layer.<name>` annotation around
+its body (what `record_function` opens, without its two dispatcher op
+calls), so it lands in the profiler's Chrome export as a
+`user_annotation` on the profiler's clock, and every device operation
+launched inside it carries its correlation: a device trace can lay the
+program's phases on its timeline. `profiler_recording()` is the gate and
+the one place that reads torch's private profiler state; with no
+profiler recording, a span pays that one check.
+
 Legacy counter bags (`ServiceStats`, `LSMStats`, `codec.block_reads`, …)
 keep their plain attributes; `register_stats` adds a read-side *collector*
 (a weakref + an explicit field→metric-name map) so `snapshot()` folds them
 into the same namespace without taxing their write paths at all.
 
-Host copy of the reference `repro/core/telemetry.py`: the metric names
-and the CATALOG are the reference's, so one lint covers both packages.
+Host copy of the reference `repro/core/telemetry.py`, with a CATALOG of
+the port's own: the reference's names, less `multihop.hop.seconds`, plus
+the ``x.`` spans inside the fof request, the frontier_expand wrapper and
+the PSW sweep.
 """
 from __future__ import annotations
 
 import json
 import os
+import random
+import sys
 import threading
 import time
 import weakref
@@ -61,8 +80,8 @@ __all__ = [
     "CATALOG", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "REGISTRY", "SpanHandle", "attach", "chrome_trace", "counter",
     "current_context", "enabled", "gauge", "histogram", "merge_snapshots",
-    "prometheus_text", "register_stats", "reset", "set_enabled", "snapshot",
-    "span", "trace_events", "trace_export",
+    "profiler_recording", "prometheus_text", "register_stats", "reset",
+    "set_enabled", "snapshot", "span", "trace_events", "trace_export",
 ]
 
 # ---------------------------------------------------------------------------
@@ -129,9 +148,32 @@ CATALOG: Dict[str, Tuple[str, str]] = {
     "lsm.purged_tombstones": ("counter", "tombstones purged by merges"),
     # --- multihop (core/multihop.py) ---
     "multihop.hops": ("counter", "frontier expansions, by mode label"),
-    "multihop.hop.seconds": ("histogram", "single-hop expansion latency"),
     "multihop.hop": ("span", "one k-hop frontier expansion"),
     "multihop.two_hop": ("span", "one batched FoF (two_hop_counts) call"),
+    "x.multihop.expand": ("span",
+                          "dense 2-hop, one seed block's enqueue: indicator "
+                          "scatter, both frontier expansions, the binarize"),
+    "x.multihop.readback": ("span",
+                            "dense 2-hop: nonzero, count gather and copies "
+                            "to the host (waits on the device)"),
+    "x.multihop.id_map": ("span",
+                          "dense 2-hop: internal to original ids of the "
+                          "read-back indices"),
+    "x.multihop.assemble": ("span",
+                            "dense 2-hop after the last block: concatenate, "
+                            "friend-key sort, semijoins, argsort, offsets"),
+    # --- frontier_expand kernel (kernels/frontier_expand/ops.py) ---
+    "x.frontier_expand.counts": ("span",
+                                 "one frontier_expand_counts call past its "
+                                 "argument checks (kernel or plain torch)"),
+    # --- device PSW (core/psw.py) ---
+    "x.psw.pagerank": ("span", "one pagerank_device call"),
+    "x.psw.window_gather": ("span",
+                            "one sweep's source-state gather: window "
+                            "exchange and edge gather, or the dense gather"),
+    "x.psw.segment_sum": ("span",
+                          "one sweep's segment_sum_sorted: float64 cast, "
+                          "pad, scans, gather at the bounds, cast back"),
     # --- shard runtime (core/shardrouter.py) ---
     "shard.rpc.requests": ("counter", "router-side RPC calls, by op label"),
     "shard.rpc.seconds": ("histogram",
@@ -408,10 +450,34 @@ def _hist_dict(buckets: np.ndarray, total: float) -> Dict[str, Any]:
 # trace spans — thread-local context, Chrome-trace complete events
 # ---------------------------------------------------------------------------
 _ctx = threading.local()
+# A span makes no system call: where system calls are slow (an H100
+# server's host measured `os.urandom`, `getpid` and `gettid` at 2-8 us
+# each) they cost several times the rest of a span. Ids come from a
+# generator seeded from `os.urandom`, the pid and each thread's native id
+# are read once; a forked child reseeds and rereads.
+_ids = random.Random()
+_pid = os.getpid()
+
+
+def _after_fork_in_child() -> None:
+    global _pid
+    _ids.seed()
+    _pid = os.getpid()
+    _ctx.__dict__.pop("tid", None)
+
+
+os.register_at_fork(after_in_child=_after_fork_in_child)
 
 
 def _new_id() -> str:
-    return os.urandom(8).hex()
+    return "%016x" % _ids.getrandbits(64)
+
+
+def _native_id() -> int:
+    tid = getattr(_ctx, "tid", None)
+    if tid is None:
+        tid = _ctx.tid = threading.get_native_id()
+    return tid
 
 
 def current_context() -> Optional[List[str]]:
@@ -651,9 +717,21 @@ def reset() -> None:
     REGISTRY.reset()
 
 
+def profiler_recording() -> bool:
+    """True while a `torch.profiler` profile records in this process. The
+    one read of torch's private profiler state: its Python-side flag,
+    through `sys.modules`, so telemetry never imports torch (no profile
+    can record before torch is imported). A torch without the flag reads
+    False, so spans go on unbridged and the bridge's test fails."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and getattr(prof, "_is_profiler_enabled", False)
+
+
 @contextmanager
 def span(name: str, **tags):
-    """Record a Chrome-trace complete event around the body.
+    """Record a Chrome-trace complete event around the body, and, while a
+    `torch.profiler` profile records, a `layer.<name>` annotation on the
+    profiler's clock.
 
     Joins the ambient trace if one exists (same thread via the context
     stack, or a remote one re-established by `attach`); otherwise roots a
@@ -665,32 +743,44 @@ def span(name: str, **tags):
         return
     if name not in _SPAN_NAMES and not name.startswith(ESCAPE_PREFIX):
         raise KeyError(f"span name not in CATALOG: {name!r}")
-    stack = getattr(_ctx, "stack", None)
-    if stack is None:
-        stack = _ctx.stack = []
-    if stack:
-        trace_id, parent = stack[-1]
-    else:
-        trace_id, parent = _new_id(), None
-    span_id = _new_id()
-    handle = SpanHandle(name, trace_id, span_id, parent, dict(tags))
-    stack.append((trace_id, span_id))
-    ts_us = time.time_ns() // 1000
-    t0 = time.perf_counter_ns()
+    annotation = None
+    if profiler_recording():
+        # opened first and closed last: the registry's own bookkeeping lies
+        # inside the annotation, so the profiler's timeline charges it to
+        # the span that pays it and leaves no gap between sibling spans
+        from torch._C._autograd import _record_function_with_args_enter
+        annotation = _record_function_with_args_enter("layer." + name)
     try:
-        yield handle
+        stack = getattr(_ctx, "stack", None)
+        if stack is None:
+            stack = _ctx.stack = []
+        if stack:
+            trace_id, parent = stack[-1]
+        else:
+            trace_id, parent = _new_id(), None
+        span_id = _new_id()
+        handle = SpanHandle(name, trace_id, span_id, parent, dict(tags))
+        stack.append((trace_id, span_id))
+        ts_us = time.time_ns() // 1000
+        t0 = time.perf_counter_ns()
+        try:
+            yield handle
+        finally:
+            dur_us = (time.perf_counter_ns() - t0) // 1000
+            stack.pop()
+            args = _safe_tags(handle.tags)
+            args["trace"] = trace_id
+            args["span"] = span_id
+            if parent is not None:
+                args["parent"] = parent
+            REGISTRY.record_event({
+                "name": name, "cat": "graphdb", "ph": "X", "ts": ts_us,
+                "dur": dur_us, "pid": _pid, "tid": _native_id(),
+                "args": args})
     finally:
-        dur_us = (time.perf_counter_ns() - t0) // 1000
-        stack.pop()
-        args = _safe_tags(handle.tags)
-        args["trace"] = trace_id
-        args["span"] = span_id
-        if parent is not None:
-            args["parent"] = parent
-        REGISTRY.record_event({
-            "name": name, "cat": "graphdb", "ph": "X", "ts": ts_us,
-            "dur": dur_us, "pid": os.getpid(),
-            "tid": threading.get_native_id(), "args": args})
+        if annotation is not None:
+            from torch._C._autograd import _record_function_with_args_exit
+            _record_function_with_args_exit(annotation)
 
 
 def chrome_trace(events: Iterable[Dict[str, Any]]) -> Dict[str, Any]:

@@ -30,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ...core import telemetry
 from ..common import cdiv, count_launch, round_up
 from . import kernel as _kernel
 from .ref import frontier_expand_torch
@@ -197,8 +198,13 @@ def frontier_expand_counts(plan: FrontierPlan, x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != plan.n_src:
         raise ValueError(f"x must be float32 ({plan.n_src}, B), got "
                          f"{x.dtype} {tuple(x.shape)}")
-    if x.device.type == "cuda":
-        B = x.shape[1]
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no frontier-expansion path for {x.device}")
+    B = x.shape[1]
+    with telemetry.span("x.frontier_expand.counts", B=B):
+        if x.device.type == "cpu":
+            return frontier_expand_torch(plan.idx, plan.mask, x,
+                                         plan.row_dst, plan.n_dst)
         out = torch.empty((plan.n_dst, B), dtype=torch.float32,
                           device=x.device)
         if out.numel():
@@ -210,7 +216,3 @@ def frontier_expand_counts(plan: FrontierPlan, x: torch.Tensor) -> torch.Tensor:
             _kernel.launch(plan, x, out, scratch, flags)
             count_launch(globals())
         return out
-    if x.device.type != "cpu":
-        raise ValueError(f"no frontier-expansion path for {x.device}")
-    return frontier_expand_torch(plan.idx, plan.mask, x, plan.row_dst,
-                                 plan.n_dst)
