@@ -40,7 +40,8 @@ copy; the dense path runs on a torch device. `device=None` means CUDA and
 raises when no card is present; `device="cpu"` runs the kernel's plain
 torch version. Plans stay resident on their device (memoized per device),
 indicator panels are scattered there, hop 1's counts stay there for hop 2,
-and only the nonzero indices and counts come back to the host.
+and the dense two-hop answer is assembled there: only the finished CSR
+comes back to the host.
 """
 from __future__ import annotations
 
@@ -493,67 +494,71 @@ def _two_hop_counts(g, seeds, direction, max_friends, exclude, predicate,
                         counts.astype(np.int64))
 
 
+def _to_original(iv, intern: torch.Tensor) -> torch.Tensor:
+    """`IntervalMap.to_original` on a tensor, on its device."""
+    ell = iv.interval_len
+    return (intern % ell) * iv.n_partitions + intern // ell
+
+
 def _two_hop_dense(eng: StorageEngine, seeds: np.ndarray, direction: str,
                    exclude: bool, device=None) -> TwoHopResult:
     """Kernel 2-hop: seeds become indicator columns; hop 1 is binarized to
     the distinct-friend panel, hop 2's accumulation IS the distinct-middle
     count (float32 counts are integer-exact far below 2**24). Seeds stream
-    through in `_SEED_BLOCK`-column panels. Panels, hop 1's counts and the
-    binarized panel stay on the device; only nonzero (vertex, column)
-    indices and counts cross to the host.
+    through in `_SEED_BLOCK`-column panels. The answer is assembled on the
+    device: a target w of column j is a friend exactly where hop 1's count
+    `c1[w, j]` is nonzero, so `exclude` is a gather of the hop-1 panel at
+    the answer's positions; ids map to original ids by the interval map's
+    arithmetic, and each block's packed (seed, id) keys are sorted there.
+    Block c0's keys lie in [c0·M, (c0 + B)·M), so the sorted blocks
+    concatenate in order. Only the finished CSR crosses to the host, in
+    one copy.
 
     Its phases are the spans `x.multihop.*` under `multihop.two_hop`: per
-    block `expand` (host enqueue only), then `readback` and `id_map` in
-    turn for the answer and for the friend set; `assemble` after the last
-    block. None synchronizes: a `readback` lasts as long as the host waits
-    for the block's hops."""
+    block `expand` (host enqueue only), `readback` (the host waits for
+    the block's hops in `nonzero`, then the count and exclusion gathers),
+    `id_map` (id map and sort, enqueue only); `assemble` after the last
+    block (concatenate, offsets, the one copy to the host; tagged with
+    `pairs`, the answer's length)."""
     from ..kernels.frontier_expand import frontier_expand_counts
     plan = dense_plan(eng, direction, device)
     dev = plan.idx.device
     iv = eng.intervals
-    M = np.int64(eng.n_internal_vertices)
+    M = eng.n_internal_vertices
     S = seeds.shape[0]
     si = torch.from_numpy(np.asarray(iv.to_internal(seeds), np.int64)).to(dev)
-    sk_parts, cnt_parts, fk_parts = [], [], []
-    # each (M, B) panel is freed once consumed: 2 GB at 4M vertices
+    key_parts, cnt_parts = [], []
+    # each (M, B) panel is freed once consumed: 2 GB at 4M vertices; past
+    # hop 2 only answer-sized arrays are made
     for c0 in range(0, S, _SEED_BLOCK):
         with telemetry.span("x.multihop.expand"):
-            x = _indicator(int(M), si[c0:c0 + _SEED_BLOCK])
+            x = _indicator(M, si[c0:c0 + _SEED_BLOCK])
             c1 = frontier_expand_counts(plan, x)        # (M, B) 0/1: edges
             del x
             c2 = frontier_expand_counts(plan, (c1 > 0).to(torch.float32))
         with telemetry.span("x.multihop.readback"):
             nz = torch.nonzero(c2)
-            cnt = torch.round(c2[nz[:, 0], nz[:, 1]]).to(torch.int64)
-            del c2
-            nz = nz.cpu().numpy()
             w, j = nz[:, 0], nz[:, 1]
-            cnt_parts.append(cnt.cpu().numpy())
+            cnt = torch.round(c2[w, j]).to(torch.int64)
+            if exclude:
+                keep = torch.nonzero((c1[w, j] == 0)
+                                     & (w != si[c0 + j])).squeeze(1)
+                w, j, cnt = w[keep], j[keep], cnt[keep]
+            del c1, c2
         with telemetry.span("x.multihop.id_map"):
-            wo = np.asarray(iv.to_original(w), np.int64)
-            sk_parts.append((c0 + j) * M + wo)
-        if exclude:
-            with telemetry.span("x.multihop.readback"):
-                fnz = torch.nonzero(c1).cpu().numpy()
-            with telemetry.span("x.multihop.id_map"):
-                fk_parts.append(
-                    (c0 + fnz[:, 1]) * M
-                    + np.asarray(iv.to_original(fnz[:, 0]), np.int64))
-        del c1
-    with telemetry.span("x.multihop.assemble"):
-        if not sk_parts:
-            return _empty_two_hop(seeds)
-        sk = np.concatenate(sk_parts)
-        counts = np.concatenate(cnt_parts)
-        if exclude:
-            fk = np.sort(np.concatenate(fk_parts)) if fk_parts \
-                else np.empty(0, np.int64)
-            selfk = np.arange(S, dtype=np.int64) * M + seeds
-            keep = ~(semijoin(sk, fk) | semijoin(sk, selfk))
-            sk, counts = sk[keep], counts[keep]
-        order = np.argsort(sk)  # (seed, target-id) order, matching sparse
-        sk, counts = sk[order], counts[order]
-        return TwoHopResult(seeds, _csr_offsets(sk // M, S), sk % M, counts)
+            keys, order = torch.sort((c0 + j) * M + _to_original(iv, w))
+            key_parts.append(keys)
+            cnt_parts.append(cnt[order])
+    with telemetry.span("x.multihop.assemble") as sp:
+        keys = torch.cat(key_parts)     # (seed, target-id) order, as sparse
+        n = keys.shape[0]
+        bounds = torch.arange(S + 1, dtype=torch.int64, device=dev) * M
+        offsets = torch.searchsorted(keys, bounds)
+        # one copy to the host: offsets, ids and counts end to end
+        out = torch.cat([offsets, keys % M, torch.cat(cnt_parts)])
+        offsets, ids, counts = np.split(out.cpu().numpy(), [S + 1, S + 1 + n])
+        sp.tag(pairs=n)
+        return TwoHopResult(seeds, offsets, ids, counts)
 
 
 # ---------------------------------------------------------------------------

@@ -154,14 +154,15 @@ CATALOG: Dict[str, Tuple[str, str]] = {
                           "dense 2-hop, one seed block's enqueue: indicator "
                           "scatter, both frontier expansions, the binarize"),
     "x.multihop.readback": ("span",
-                            "dense 2-hop: nonzero, count gather and copies "
-                            "to the host (waits on the device)"),
+                            "dense 2-hop: nonzero (waits on the device), "
+                            "count and friend-exclusion gathers"),
     "x.multihop.id_map": ("span",
-                          "dense 2-hop: internal to original ids of the "
-                          "read-back indices"),
+                          "dense 2-hop: original ids and the block's key "
+                          "sort, on the device (enqueue)"),
     "x.multihop.assemble": ("span",
                             "dense 2-hop after the last block: concatenate, "
-                            "friend-key sort, semijoins, argsort, offsets"),
+                            "offsets, one copy of the answer to the host; "
+                            "tag pairs"),
     # --- frontier_expand kernel (kernels/frontier_expand/ops.py) ---
     "x.frontier_expand.counts": ("span",
                                  "one frontier_expand_counts call past its "

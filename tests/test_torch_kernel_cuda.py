@@ -17,8 +17,8 @@ kernel and cuBLAS sum in another order) and 2e-2 in bfloat16 (test_bf16's:
 the kernel rounds P to bf16 for P·V, on wgmma + TMA); embedding_bag is bitwise (both add
 w·row in slot order, rounded twice in fp32; where a row holds inf or NaN, the NaN
 columns are compared as a mask, since NaN != NaN). A small reopened on-disk
-`GraphDB`'s dense hops and snapshot on the card are bitwise equal to
-`device="cpu"`. A MoE smoke-width prefill (through the flash_attention
+`GraphDB`'s dense hops and snapshot on the card, and a 256-seed dense
+two-hop answer assembled on the card, are bitwise equal to `device="cpu"`. A MoE smoke-width prefill (through the flash_attention
 kernel) and bert4rec's scores on the card are within 1e-4 of the CPU's."""
 import numpy as np
 import pytest
@@ -571,6 +571,34 @@ def test_reopened_graphdb_dense_hops_and_snapshot_on_the_card(cuda,
     for mode in ("dense_gather", "psw_windows"):
         assert torch.equal(psw.pagerank_device(dg, 5, mode=mode).cpu(),
                            psw.pagerank_device(dh, 5, mode=mode))
+
+
+@pytest.mark.parametrize("exclude", [True, False])
+def test_dense_two_hop_assembled_on_the_card_equals_cpu(cuda, exclude):
+    """A 256-seed dense two_hop (two seed blocks, with a hub and repeated
+    seeds): the answer assembled on the card (friend exclusion by a gather
+    from the hop-1 panel, the id map and the sort there, one copy back) is
+    bitwise the `device="cpu"` one, as int64 numpy arrays."""
+    from repro_torch.core import GraphPAL, two_hop_counts
+    rng = np.random.default_rng(41)
+    n = 20_000
+    src, dst = rng.integers(0, n, 300_000), rng.integers(0, n, 300_000)
+    src = np.concatenate([src, np.full(5000, 11), rng.integers(0, n, 5000)])
+    dst = np.concatenate([dst, rng.integers(0, n, 5000), np.full(5000, 11)])
+    g = GraphPAL.from_edges(src, dst, n_partitions=16, max_id=n - 1)
+    seeds = rng.choice(n, 256, replace=False)
+    seeds[[3, 200]] = 11                              # the hub, twice
+    n0 = ops.launches
+    on_card = two_hop_counts(g, seeds, dense="kernel", device=cuda,
+                             exclude=exclude)
+    assert ops.launches - n0 == 4
+    plain = two_hop_counts(g, seeds, dense="kernel", device="cpu",
+                           exclude=exclude)
+    assert on_card.ids.shape[0] > 0
+    for f in ("offsets", "ids", "counts"):
+        a = getattr(on_card, f)
+        assert isinstance(a, np.ndarray) and a.dtype == np.int64, f
+        assert np.array_equal(a, getattr(plain, f)), f
 
 
 def test_service_read_views_dense_under_a_writer_on_the_card(cuda,

@@ -173,3 +173,73 @@ def test_plan_cache_key_names_one_device_once(monkeypatch, current):
     assert tmh._plan_cached(eng, "out", None)
     assert tmh._plan_cached(eng, "out", "cuda")
     assert not tmh._plan_cached(eng, "out", f"cuda:{1 - current}")
+
+
+# ---------------------------------------------------------------------------
+# the dense two-hop answer, assembled on the device, at its edge cases
+# ---------------------------------------------------------------------------
+# vertices past RAND_SRC take no random out-edges, only these: a 2-cycle
+# (A <-> B), a self-loop (SL), a target that is also a friend (P -> Q -> R,
+# P -> R), a sink (in-edges only) and R, whose one friend is the sink
+SINK, A, B, SL, P, Q, R_ = N - 1, N - 2, N - 3, N - 4, N - 5, N - 6, N - 7
+RAND_SRC = N - 8
+CRAFTED = [(A, B), (B, A), (B, 5), (SL, SL), (SL, Q), (P, Q), (P, R_),
+           (P, R_), (Q, R_), (Q, P), (Q, 7), (R_, SINK)]
+
+
+def fof_store(pkg):
+    rng = np.random.default_rng(9)
+    src, dst = rng.integers(0, RAND_SRC, E), rng.integers(0, N, E)
+    cs, cd = np.asarray(CRAFTED).T
+    return pkg.GraphPAL.from_edges(np.concatenate([src, cs]),
+                                   np.concatenate([dst, cd]),
+                                   n_partitions=8, max_id=N - 1)
+
+
+def _drawn(n):
+    return np.random.default_rng(n).choice(N, n, replace=False)
+
+
+DENSE_CASES = {
+    **{f"seeds{n}": (lambda n=n: _drawn(n), {}) for n in (1, 127, 128, 129,
+                                                           256)},
+    # the same seed within a block and across the block edge
+    "duplicates": (lambda: np.concatenate([_drawn(100), [A, A, SL],
+                                           _drawn(60), [A, SL, P]]), {}),
+    "two_cycle": (lambda: np.array([A, B]), {}),
+    "self_loop": (lambda: np.array([SL]), {}),
+    "friend_target": (lambda: np.array([P, Q]), {}),
+    "no_out_edges": (lambda: np.concatenate([[SINK], _drawn(20)]), {}),
+    "empty_answer": (lambda: np.array([SINK, R_, SINK]), {}),
+    "keep_friends": (lambda: np.concatenate([_drawn(129), [A, SL, P]]),
+                     {"exclude": False}),
+    "in_edges": (lambda: np.concatenate([_drawn(129), [A, SL, P, SINK]]),
+                 {"direction": "in"}),
+}
+
+
+@pytest.mark.parametrize("case", list(DENSE_CASES))
+def test_dense_two_hop_answer_matches_reference(case):
+    """The port's dense two-hop, which excludes friends by a gather from
+    the hop-1 panel and sorts and reads back the answer on the device,
+    bitwise against the reference's sparse and dense answers."""
+    make, kw = DENSE_CASES[case]
+    seeds = make()
+    ref, port = fof_store(R), fof_store(T)
+    got = T.two_hop_counts(port, seeds, dense="kernel", device="cpu", **kw)
+    for dense in ("never", "kernel"):
+        same_two_hop(R.two_hop_counts(ref, seeds, dense=dense, **kw), got)
+    for f in ("offsets", "ids", "counts"):
+        a = getattr(got, f)
+        assert isinstance(a, np.ndarray) and a.dtype == np.int64, f
+    if case == "empty_answer":
+        assert got.ids.shape[0] == 0
+    if case == "friend_target":
+        # R is P's friend and reached through Q: excluded from P's answer
+        assert R_ not in got.ids[got.slice_of(0)]
+    if case in ("two_cycle", "self_loop"):
+        assert seeds[0] not in got.ids[got.slice_of(0)]
+    if case == "keep_friends":
+        # kept: A reaches itself through B, SL through its loop, R from P
+        for i, (v, t) in enumerate([(A, A), (SL, SL), (P, R_)], 129):
+            assert seeds[i] == v and t in got.ids[got.slice_of(i)]

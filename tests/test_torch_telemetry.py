@@ -234,11 +234,10 @@ def test_fof_request_phases(exclude, events):
                            exclude=exclude)
     evs = events()
     names = Counter(e["name"] for e in evs)
-    per = 2 if exclude else 1
     assert names == {"multihop.two_hop": 1, "x.multihop.expand": blocks,
                      "x.frontier_expand.counts": 2 * blocks,
-                     "x.multihop.readback": per * blocks,
-                     "x.multihop.id_map": per * blocks,
+                     "x.multihop.readback": blocks,
+                     "x.multihop.id_map": blocks,
                      "x.multihop.assemble": 1}
     assert len({e["args"]["trace"] for e in evs}) == 1
     by_id = {e["args"]["span"]: e for e in evs}
@@ -251,6 +250,8 @@ def test_fof_request_phases(exclude, events):
             assert up[0] == "x.multihop.expand"
             assert e["args"]["B"] in (128, 44)
     want = T.two_hop_counts(g, seeds, dense="never", exclude=exclude)
+    assemble, = (e for e in evs if e["name"] == "x.multihop.assemble")
+    assert assemble["args"]["pairs"] == want.ids.shape[0]
     for f in ("seeds", "offsets", "ids", "counts"):
         a, b = getattr(got, f), getattr(want, f)
         assert a.dtype == b.dtype and np.array_equal(a, b)
