@@ -47,6 +47,7 @@ import shutil
 import struct
 import threading
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -895,6 +896,63 @@ class GraphDB:
         return db
 
     @classmethod
+    def bulk_load(cls, directory: str, src, dst, max_id: int, etype=None,
+                  columns: Optional[Dict[str, np.ndarray]] = None,
+                  **create_kw) -> "GraphDB":
+        """Create a GraphDB whose leaf level holds the edges `src -> dst`
+        (original ids, host int64 arrays) with their `etype` and edge
+        `columns` (one array for each of `column_dtypes`), written straight
+        to partition files. `insert_edges` of the same arrays would give
+        the same edge multiset through buffers and merges; here each leaf
+        is built once by `build_partition`, as `GraphPAL.from_edges` builds
+        its partitions, put through the partition store, and covered by a
+        manifest at the WAL's tail, so `GraphDB.open` recovers it bitwise.
+        Leaves are built and written side by side, a thread a core (numpy's
+        sorts, the checksums and the writes release the GIL). `create_kw`
+        are `create`'s."""
+        db = cls.create(directory, max_id, **create_kw)
+        tree = db.tree
+        iv = tree.intervals
+        src = np.asarray(src, np.int64).ravel()
+        dst = np.asarray(dst, np.int64).ravel()
+        n = src.shape[0]
+        columns = dict(columns or {})
+        if set(columns) != set(tree.column_dtypes):
+            raise ValueError(f"columns {sorted(columns)} are not the store's "
+                             f"{sorted(tree.column_dtypes)}")
+        if dst.shape[0] != n or any(np.shape(v) != (n,)
+                                    for v in columns.values()):
+            raise ValueError("src, dst and every column need one entry an "
+                             "edge")
+        if n and (min(src.min(), dst.min()) < 0
+                  or max(src.max(), dst.max()) > max_id):
+            raise ValueError(f"vertex ids outside 0 .. {max_id}")
+        etype = (np.zeros(n, np.int8) if etype is None
+                 else np.asarray(etype, np.int8))
+        isrc, idst = iv.to_internal(src), iv.to_internal(dst)
+        leaves = tree.levels[-1]
+        leaf_of = idst // (iv.max_vertices // len(leaves))
+
+        def load(j):
+            m = leaf_of == j
+            if not m.any():
+                return None
+            return db.store.put(build_partition(
+                leaves[j].interval, isrc[m], idst[m], etype[m],
+                {k: np.asarray(v)[m].astype(tree.column_dtypes[k])
+                 for k, v in columns.items()}))
+
+        with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+            digests = list(pool.map(load, range(len(leaves))))
+        for j, digest in enumerate(digests):
+            if digest is not None:
+                leaves[j] = db._open_part(digest)
+        db.store.sync([d for d in digests if d is not None])
+        tree.publish()
+        db._write_manifest(wal_offset=db._wal_offset())
+        return db
+
+    @classmethod
     def open(cls, directory: str) -> "GraphDB":
         """Recover a GraphDB: manifest partitions + WAL tail replay."""
         mpath = os.path.join(directory, cls.MANIFEST)
@@ -1056,6 +1114,7 @@ class GraphDB:
                     hit = True
         self._quarantine_files(digest)
         if hit:
+            self.tree.oplog.cut()   # the edge set changed outside the log
             self.tree.publish()
         return hit
 
@@ -1082,6 +1141,7 @@ class GraphDB:
         tree._buffered = 0
         tree._pending = [[] for _ in tree.buffers]
         tree._inflight_edges = 0
+        tree.oplog.cut()
         wal, tree.wal = tree.wal, None
         try:
             n = replay_ops(tree, wal.replay(offset=0))

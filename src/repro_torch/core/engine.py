@@ -426,6 +426,29 @@ class StorageEngine:
         return ("edges", int(n_edges),
                 int(buffered()) if buffered is not None else 0)
 
+    # -- live derived state (a store that logs its changes of key presence)
+    def live_position(self) -> Optional[int]:
+        """Where this engine reads one pinned edge set of a store that logs
+        its changes of key presence: the number of log entries the edge set
+        covers. Derived read structures may then follow the store by its
+        log (`log_entries`, kept in `live_state()`) instead of being built
+        per content (core/multihop.py's live dense plans). None here: build
+        per `cache_token()`."""
+        return None
+
+    def log_entries(self, a: int, b: int, follower=None):
+        """(keys int64, signs int8) of the store's log entries [a, b): a
+        packed internal key (src * max_vertices + dst), +1 for an insert,
+        -1 for a delete that found its key. None where the log no longer
+        holds them. `follower` names a reader that has then read up to `b`
+        and needs the entries from there on."""
+        return None
+
+    def live_state(self) -> Dict:
+        """Mutable dict, kept on the store across its publications, for the
+        derived structures that follow it by `log_entries`."""
+        raise TypeError(f"{type(self).__name__} logs no changes")
+
     def _neighbors_batch(self, vs, direction: str):
         vs = np.asarray(vs, dtype=np.int64).ravel()
         iv = self.intervals
@@ -575,6 +598,15 @@ class ManifestEngine(StorageEngine):
 
     def cache_token(self):
         return ("manifest",)  # one manifest == one immutable edge set
+
+    def live_position(self):
+        return self.graph.manifest.log_seq
+
+    def log_entries(self, a, b, follower=None):
+        return self.graph.tree.oplog.entries(a, b, follower)
+
+    def live_state(self):
+        return self.graph.tree.live_state
 
 
 class SnapshotEngine(LSMEngine):

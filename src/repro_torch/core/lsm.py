@@ -24,11 +24,13 @@ Host copy of the reference `repro/core/lsm.py` (numpy).
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import itertools
 import os
 import struct
 import tempfile
+import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,7 +50,90 @@ from .pal import (
     run_from_partition,
 )
 
-__all__ = ["BufferStaging", "EdgeBuffer", "LSMTree", "LSMStats", "MergeTxn"]
+__all__ = ["BufferStaging", "EdgeBuffer", "LSMTree", "LSMStats", "MergeTxn",
+           "MutationLog"]
+
+
+class MutationLog:
+    """The store's changes of key presence, in order: what a read structure
+    derived from a whole edge set (core/multihop.py's live dense plans)
+    reads to follow the store without a rebuild per publication.
+
+    Entry i is a packed internal key (src * max_vertices + dst) with +1 for
+    an insert and -1 for a delete that found the key. A delete removes every
+    copy of its key and an insert makes it present, so a key's presence is
+    its last entry. Merges, checkpoints and column writes change no key's
+    presence and append nothing. `seq` counts the entries ever appended;
+    every manifest records the `seq` its edge set covers
+    (`LevelManifest.log_seq`). A reader that follows the log names itself
+    when it reads (`entries(..., follower=)`): entries from the oldest
+    position a follower has read up to are held, and with no follower only
+    the last `LAG` (so that a structure built from a view pinned a little
+    earlier can still follow), at most `KEEP` in any case. A reader that
+    asks for entries no longer held gets None and rebuilds. `cut()` marks a
+    change of the edge set that the log does not describe (a quarantined
+    partition, a rebuild from the WAL): no range that spans it is served.
+
+    Appends come from the serialized writer; readers of any thread call
+    `entries`. One lock orders them."""
+
+    KEEP = 1 << 22
+    LAG = 1 << 18
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._starts: List[int] = []          # seq of each chunk's first entry
+        self._chunks: List[Tuple[object, int]] = []   # (keys, sign)
+        self._followers: Dict = {}            # follower -> position read to
+        self.start = 0                        # seq of the oldest entry held
+        self.seq = 0
+
+    def append(self, keys, sign: int, n: Optional[int] = None) -> None:
+        """`n` keys (an int64 array, or one int with n = 1), all of `sign`."""
+        n = int(keys.shape[0]) if n is None else n
+        if n == 0:
+            return
+        with self._lock:
+            self._starts.append(self.seq)
+            self._chunks.append((keys, sign))
+            self.seq += n
+            need = (min(self._followers.values()) if self._followers
+                    else self.seq - self.LAG)
+            i = bisect.bisect_right(self._starts,
+                                    max(need, self.seq - self.KEEP)) - 1
+            if i > 0:
+                del self._starts[:i], self._chunks[:i]
+                self.start = self._starts[0]
+
+    def cut(self) -> None:
+        with self._lock:
+            self._starts.clear()
+            self._chunks.clear()
+            self._followers.clear()
+            self.seq += 1
+            self.start = self.seq
+
+    def entries(self, a: int, b: int, follower=None):
+        """(keys int64, signs int8) of entries [a, b), or None where the
+        range starts before the oldest entry held. `follower` (any hashable
+        name) has then read up to `b`: entries from `b` on are held for it."""
+        with self._lock:
+            if follower is not None:
+                self._followers[follower] = b
+            if a < self.start:
+                return None
+            i = max(bisect.bisect_right(self._starts, a) - 1, 0)
+            j = bisect.bisect_left(self._starts, b)
+            starts, chunks = self._starts[i:j], self._chunks[i:j]
+        keys, signs = [], []
+        for st, (k, sign) in zip(starts, chunks):
+            k = np.atleast_1d(np.asarray(k, np.int64))
+            k = k[max(a - st, 0):max(b - st, 0)]
+            keys.append(k)
+            signs.append(np.full(k.shape[0], sign, np.int8))
+        if not keys:
+            return np.empty(0, np.int64), np.empty(0, np.int8)
+        return np.concatenate(keys), np.concatenate(signs)
 
 
 class BufferStaging:
@@ -481,6 +566,11 @@ class LSMTree:
         # mmap-backed replacement
         self.partition_sink = partition_sink
         self._engine = None
+        # changes of key presence, and the read structures that follow the
+        # store by them (`ManifestEngine.live_state()`: core/multihop.py's
+        # live dense plans)
+        self.oplog = MutationLog()
+        self.live_state: Dict = {}
         self.publish()  # manifest v0: readers can pin from birth
 
     def _wal_append(self, payload: bytes) -> None:
@@ -529,6 +619,7 @@ class LSMTree:
             stagings=tuple(b.staging() for b in self.buffers),
             pending=tuple(tuple(p) for p in self._pending),
             wal_tail=wal_tail,
+            log_seq=self.oplog.seq,
         )
         self.epochs.publish(m)
         return m
@@ -554,7 +645,8 @@ class LSMTree:
             stagings[j] = self.buffers[j].staging()
         self._mversion += 1
         m = LevelManifest(self._mversion, tuple(levels), tuple(stagings),
-                          cur.pending, self._fresh_wal_tail(cur.wal_tail))
+                          cur.pending, self._fresh_wal_tail(cur.wal_tail),
+                          self.oplog.seq)
         self.epochs.publish(m)
 
     def _fresh_wal_tail(self, fallback: int) -> int:
@@ -585,7 +677,8 @@ class LSMTree:
         self._mversion += 1
         self.epochs.publish(cur.with_stagings(
             self._mversion, tuple(stagings),
-            wal_tail=self._fresh_wal_tail(cur.wal_tail)))
+            wal_tail=self._fresh_wal_tail(cur.wal_tail),
+            log_seq=self.oplog.seq))
 
     def read_view(self) -> ManifestView:
         """Pin the current manifest under an epoch guard and return a
@@ -642,6 +735,7 @@ class LSMTree:
             self._wal_append(struct.pack("<qqb", isrc, idst, etype))
         j = self._top_index_of(idst)
         self.buffers[j].append(isrc, idst, etype, cols)
+        self.oplog.append(isrc * self.intervals.max_vertices + idst, 1, 1)
         self.stats.inserts += 1
         self._buffered += 1
         self.publish_buffers((j,))
@@ -677,6 +771,8 @@ class LSMTree:
                     isrc[m], idst[m], etype[m],
                     {k: np.asarray(v)[m] for k, v in columns.items()},
                 )
+        self.oplog.append(isrc * np.int64(self.intervals.max_vertices)
+                          + idst, 1)
         self.stats.inserts += int(src.shape[0])
         self._buffered += int(src.shape[0])
         self.publish_buffers(touched)
@@ -1094,6 +1190,8 @@ class LSMTree:
             self.stats.deletes += 1
             if self.wal is not None:  # tombstones are durable pre-checkpoint
                 self.wal.append_delete(isrc, idst)
+            self.oplog.append(isrc * self.intervals.max_vertices + idst, -1,
+                              1)
             # targeted publish of exactly the touched dst path: tombstone
             # COW + buffer compaction left the old manifest bitwise-intact;
             # new readers must see the delete

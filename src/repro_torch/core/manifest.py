@@ -94,7 +94,9 @@ class LevelManifest:
     committed — a reader that includes them sees exactly the pre-merge
     logical state, and the commit publish atomically swaps them for the
     merged partitions. `wal_tail` is informational (feedback scheduling).
-    `cache` memoizes derived read structures (engine slab lists): a
+    `log_seq` is the tree's `MutationLog.seq` at publication: the entries
+    before it are this manifest's edge set's changes. `cache` memoizes
+    derived read structures (engine slab lists): a
     manifest is immutable, so they are built once and shared by every
     reader thread pinning it (idempotent benign-race fills). A slotted
     plain class, not a dataclass — one of these is constructed on EVERY
@@ -102,27 +104,31 @@ class LevelManifest:
     the write path."""
 
     __slots__ = ("version", "levels", "stagings", "pending", "wal_tail",
-                 "cache")
+                 "log_seq", "cache")
 
     def __init__(self, version: int,
                  levels: Tuple[Tuple[ManifestPartition, ...], ...],
-                 stagings: Tuple, pending: Tuple, wal_tail: int = 0):
+                 stagings: Tuple, pending: Tuple, wal_tail: int = 0,
+                 log_seq: int = 0):
         self.version = version
         self.levels = levels
         self.stagings = stagings
         self.pending = pending
         self.wal_tail = wal_tail
+        self.log_seq = log_seq
         self.cache: Dict = {}
 
     def with_stagings(self, version: int, stagings: Tuple,
-                      wal_tail: Optional[int] = None) -> "LevelManifest":
+                      wal_tail: Optional[int] = None,
+                      log_seq: Optional[int] = None) -> "LevelManifest":
         """The insert-path splice: same partitions/pending, new buffer
         stagings, fresh cache. `wal_tail` updates the manifest's logical
         offset (the insert path passes the post-append tail so the manifest
         is *addressable*: pinning a session at exactly `wal_tail` replays
-        to exactly this manifest's logical state)."""
+        to exactly this manifest's logical state); `log_seq` likewise."""
         return LevelManifest(version, self.levels, stagings, self.pending,
-                             self.wal_tail if wal_tail is None else wal_tail)
+                             self.wal_tail if wal_tail is None else wal_tail,
+                             self.log_seq if log_seq is None else log_seq)
 
     def partitions(self) -> List[ManifestPartition]:
         return [p for lv in self.levels for p in lv]

@@ -26,10 +26,17 @@ Dense frontiers additionally get a device path: a `FrontierPlan`
 (kernels/frontier_expand) lays the store's deduplicated edge set out as
 virtual-row ELL tiles and a CUDA kernel expands indicator columns on the
 GPU; `khop(dense="auto")` picks sparse probes, a bottom-up edge
-stream, or the kernel by frontier density (§10.3). Plans and packed edge-key
-sets are memoized on the engine's `plan_cache()` keyed by `cache_token()`,
-so a `ManifestView` shares them across every reader of one publication and
-a mutated store can never serve a stale plan.
+stream, or the kernel by frontier density (§10.3). Packed edge-key sets,
+and the plans of stores that are not live, are memoized on the engine's
+`plan_cache()` keyed by `cache_token()`, so a mutated store can never serve
+a stale plan. A `ManifestView` of a live store does not rebuild its plan
+per publication (every insert publishes): its dense hops run on a base
+plan kept on the store across publications (`StorageEngine.live_state()`),
+and add the view's signed delta to each hop's counts on the device, folded
+from the store's log of changes of key presence
+(`StorageEngine.log_entries`, `_LivePlan`). The base is rebuilt only when
+the delta passes `LIVE_DELTA_MAX` entries or the log no longer reaches back
+to it.
 
 All operators speak only the `StorageEngine` protocol — they run identically
 on a live `LSMTree`, a bulk `GraphPAL`, an mmap-backed `GraphDB`, and a
@@ -47,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import operator
+import threading
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -56,6 +64,7 @@ from . import telemetry
 from .engine import StorageEngine, _expand_ranges, as_engine
 
 _M_HOPS = telemetry.counter("multihop.hops")
+_M_BASE_BUILDS = telemetry.counter("x.multihop.base_builds")
 
 GraphLike = Any
 
@@ -78,6 +87,13 @@ __all__ = [
 # frontier work, so `dense="auto"` never picks the kernel path above it
 DENSE_MAX_VERTICES = 4_000_000
 _SEED_BLOCK = 128  # dense 2-hop: one kernel feature-tile of seed columns
+# a live store's dense plan is a base plan and a signed delta (`_LivePlan`):
+# once a view's delta holds more entries than this, its request rebuilds
+# the base from the view's own edge set. At 2**20 entries the delta costs a
+# 128-column hop about 1.5 GB of gathers and adds on the device, a fraction
+# of a millisecond on an H100, where a rebuild at 57M edges takes ~10 s
+LIVE_DELTA_MAX = 1 << 20
+_DELTA_CHUNK = 1 << 16  # delta entries a gather: a (chunk, B) float32 scratch
 
 
 # ---------------------------------------------------------------------------
@@ -264,30 +280,211 @@ def dense_plan(g: GraphLike, direction: str = "out", device=None):
     """Build (or fetch the memoized) frontier-expansion plan: the store's
     deduplicated edge set as destination-grouped virtual-row ELL tiles
     (kernels/frontier_expand), resident on `device`. `direction="in"`
-    builds the transposed plan."""
+    builds the transposed plan.
+
+    On a read view of a live store (`LSMTree.read_view()`, and so of a
+    `GraphDB` or `ServiceDB`) this is the store's base plan, kept across
+    publications: the view's own edge set is the base's plus a signed delta
+    that the dense hops apply to each hop's counts (`_LivePlan`). A view
+    pinned before the base was built gets a plan of its own edge set,
+    memoized on its manifest."""
     eng = as_engine(g)
-    dev = _resolve_device(device)
+    return _dense_inputs(eng, direction, _resolve_device(device))[0]
+
+
+def _build_plan(keys: np.ndarray, M: int, direction: str, dev):
+    from ..kernels.frontier_expand import build_frontier_plan, plan_to_device
+    s = keys // M
+    d = keys % M
+    if direction == "out":
+        plan = build_frontier_plan(s, d, n_src=M, n_dst=M)
+    else:
+        plan = build_frontier_plan(d, s, n_src=M, n_dst=M)
+    return plan_to_device(plan, dev)
+
+
+def _dense_inputs(eng: StorageEngine, direction: str, dev: torch.device):
+    """(plan, delta) that the dense hops over `eng`'s edge set run on: the
+    plan's counts plus `_apply_delta(counts, x, delta)` are the edge set's
+    counts. `delta` is None where the plan is the edge set's own."""
     M = eng.n_internal_vertices
     if M > DENSE_MAX_VERTICES:
         raise ValueError(
             f"dense plan disabled above {DENSE_MAX_VERTICES} internal "
             f"vertices (store has {M}): the indicator panel would dominate")
+    seq = eng.live_position()
+    if seq is not None:
+        got = _live_inputs(eng, seq, direction, dev)
+        if got is not None:
+            return got
+    plan = _memoized(eng, (_PLAN_KEY, direction, _device_key(dev)),
+                     lambda: _build_plan(_edge_keys_internal(eng), M,
+                                         direction, dev))
+    return plan, None
 
-    def build():
-        from ..kernels.frontier_expand import build_frontier_plan, plan_to_device
-        keys = _edge_keys_internal(eng)
-        s = keys // M
-        d = keys % M
-        if direction == "out":
-            plan = build_frontier_plan(s, d, n_src=M, n_dst=M)
-        else:
-            plan = build_frontier_plan(d, s, n_src=M, n_dst=M)
-        return plan_to_device(plan, dev)
 
-    return _memoized(eng, (_PLAN_KEY, direction, _device_key(dev)), build)
+class _LivePlan:
+    """One direction's dense plan of a live store on one device, kept across
+    the store's publications: a base plan of the edge set at log position
+    `seq0`, and the signed delta that takes it to a later
+    position. The delta's entries are the changes of key presence since
+    `seq0`, in log order: +1 where an insert made an absent key present, -1
+    where a delete removed a present one. An insert of a present key adds
+    nothing, so each key's entries sum to its presence in the view less its
+    presence in the base, and base + delta is the view's deduplicated 0/1
+    adjacency exactly. A view at position `seq` applies the entries made by
+    log entries before `seq`: a prefix, so an older pinned view answers
+    with its own edge set after newer writes, and merges, which append
+    nothing to the log, change nothing here.
+
+    Entries are folded from the log once, in order, as views ask for later
+    positions; their (from, to, sign) columns are uploaded to the plan's
+    device once and grow there. The caller holds `_LiveSlot.lock`."""
+
+    def __init__(self, plan, keys: np.ndarray, seq0: int, direction: str,
+                 name):
+        self.plan = plan
+        self.name = name              # its name as the log's follower
+        self.keys = keys              # the base's sorted internal keys
+        self.seq0 = self.seq = seq0   # folded up to `seq`
+        self.out = direction == "out"
+        self.present = {}             # key -> presence, once it changed
+        self.n = 0
+        self.ent_key = np.empty(1024, np.int64)
+        self.ent_sign = np.empty(1024, np.int8)
+        self.ent_seq = np.empty(1024, np.int64)   # the log entry's position
+        self.n_dev = 0
+        self.dev = None               # (from, to, sign) on the plan's device
+
+    def _fold(self, eng: StorageEngine, seq: int) -> bool:
+        """Fold log entries [self.seq, seq); False where the log no longer
+        holds them or they disagree with the base."""
+        got = eng.log_entries(self.seq, seq, follower=self.name)
+        if got is None:
+            return False
+        keys, signs = got
+        base = semijoin(keys, self.keys)
+        present = self.present
+        made = []
+        for i, (k, sign) in enumerate(zip(keys.tolist(), signs.tolist())):
+            now = present.get(k)
+            if now is None:
+                now = bool(base[i])
+            if sign < 0 and not now:
+                return False    # a delete that found a key the delta lacks
+            if (sign > 0) != now:
+                made.append((k, sign, self.seq + i))
+                present[k] = sign > 0
+        if made:
+            k, sign, at = np.asarray(made, np.int64).T
+            n = self.n + k.shape[0]
+            if n > self.ent_key.shape[0]:
+                cap = max(n, 2 * self.ent_key.shape[0])
+                for name in ("ent_key", "ent_sign", "ent_seq"):
+                    old = getattr(self, name)
+                    new = np.empty(cap, old.dtype)
+                    new[:self.n] = old[:self.n]
+                    setattr(self, name, new)
+            self.ent_key[self.n:n] = k
+            self.ent_sign[self.n:n] = sign
+            self.ent_seq[self.n:n] = at
+            self.n = n
+        self.seq = seq
+        return True
+
+    def delta(self, eng: StorageEngine, seq: int):
+        """The delta's (from, to, sign) tensors for a view at `seq`, () where
+        it has no entries, or None where the base must be rebuilt:
+        the log no longer reaches back to what is folded, or the delta
+        holds more than LIVE_DELTA_MAX entries."""
+        if seq > self.seq and not self._fold(eng, seq):
+            return None
+        L = int(np.searchsorted(self.ent_seq[:self.n], seq))
+        if L > LIVE_DELTA_MAX:
+            return None
+        if L == 0:
+            return ()
+        if self.n > self.n_dev:
+            self._upload()
+        return tuple(t[:L] for t in self.dev)
+
+    def _upload(self) -> None:
+        dev, M = self.plan.idx.device, self.plan.n_src
+        key = torch.from_numpy(self.ent_key[self.n_dev:self.n]).to(dev)
+        sign = torch.from_numpy(self.ent_sign[self.n_dev:self.n]).to(dev)
+        cols = (key // M, key % M) if self.out else (key % M, key // M)
+        cols = (*cols, sign.to(torch.float32))
+        if self.dev is None or self.dev[0].shape[0] < self.n:
+            cap = max(self.n, 2 * (0 if self.dev is None
+                                   else self.dev[0].shape[0]), 1024)
+            grown = tuple(torch.empty(cap, dtype=c.dtype, device=dev)
+                          for c in cols)
+            if self.dev is not None:
+                for g, d in zip(grown, self.dev):
+                    g[:self.n_dev] = d[:self.n_dev]
+            self.dev = grown
+        for g, c in zip(self.dev, cols):
+            g[self.n_dev:self.n] = c
+        self.n_dev = self.n
+
+
+class _LiveSlot:
+    """A store's `_LivePlan` for one (direction, device) and the lock its
+    readers take: a fold, an upload or a base build runs once however many
+    reader threads ask."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.live: Optional[_LivePlan] = None
+
+
+def _live_inputs(eng: StorageEngine, seq: int, direction: str, dev):
+    """(base plan, delta) of a live store's view at log position `seq`, or
+    None where the view is older than the base. Builds the base from this
+    view's edge set where there is none, or where `_LivePlan.delta` asks
+    for a rebuild; every build counts in `x.multihop.base_builds`."""
+    name = (_PLAN_KEY, direction, _device_key(dev))
+    slot = eng.live_state().setdefault(name, _LiveSlot())
+    with slot.lock:
+        lp = slot.live
+        if lp is not None and seq < lp.seq0:
+            return None
+        delta = None
+        if lp is not None:
+            with telemetry.span("x.multihop.delta") as sp:
+                delta = lp.delta(eng, seq)
+                if delta is not None:
+                    sp.tag(delta_edges=int(delta[0].shape[0]) if delta else 0)
+        if delta is None:
+            with telemetry.span("x.multihop.base_build"):
+                # the log holds what comes after `seq` while the base builds
+                eng.log_entries(seq, seq, follower=name)
+                keys = _edge_keys_internal(eng)
+                lp = slot.live = _LivePlan(
+                    _build_plan(keys, eng.n_internal_vertices, direction,
+                                dev), keys, seq, direction, name)
+            _M_BASE_BUILDS.inc()
+        return lp.plan, delta or None
+
+
+def _apply_delta(counts: torch.Tensor, x: torch.Tensor, delta) -> None:
+    """counts[to] += sign * x[from] over the delta's entries, in place: the
+    hop's counts over base + delta from the base's. Every partial sum is a
+    small integer, so float32 adds in any order are exact."""
+    src, dst, sign = delta
+    for a in range(0, src.shape[0], _DELTA_CHUNK):
+        b = a + _DELTA_CHUNK
+        counts.index_add_(0, dst[a:b], x[src[a:b]] * sign[a:b, None])
 
 
 def _plan_cached(eng: StorageEngine, direction: str, device=None) -> bool:
+    seq = eng.live_position()
+    if seq is not None:
+        slot = eng.live_state().get((_PLAN_KEY, direction,
+                                     _device_key(device)))
+        lp = None if slot is None else slot.live
+        if lp is not None and seq >= lp.seq0:
+            return True
     token = eng.cache_token()
     return (token is not None
             and ((_PLAN_KEY, direction, _device_key(device)), token)
@@ -309,7 +506,7 @@ def _expand_dense(eng: StorageEngine, frontier: np.ndarray,
     device, run the frontier-expansion kernel, read back the touched
     destinations."""
     from ..kernels.frontier_expand import frontier_expand_counts
-    plan = dense_plan(eng, direction, device)
+    plan, delta = _dense_inputs(eng, direction, _resolve_device(device))
     dev = plan.idx.device
     iv = eng.intervals
     fi = torch.from_numpy(np.asarray(iv.to_internal(frontier), np.int64))
@@ -317,6 +514,8 @@ def _expand_dense(eng: StorageEngine, frontier: np.ndarray,
                     device=dev)
     x[fi.to(dev), 0] = 1.0
     counts = frontier_expand_counts(plan, x)
+    if delta is not None:
+        _apply_delta(counts, x, delta)
     nxt = torch.nonzero(counts[:, 0] > 0).squeeze(1).cpu().numpy()
     return np.sort(np.asarray(iv.to_original(nxt), np.int64))
 
@@ -521,7 +720,7 @@ def _two_hop_dense(eng: StorageEngine, seeds: np.ndarray, direction: str,
     block (concatenate, offsets, the one copy to the host; tagged with
     `pairs`, the answer's length)."""
     from ..kernels.frontier_expand import frontier_expand_counts
-    plan = dense_plan(eng, direction, device)
+    plan, delta = _dense_inputs(eng, direction, _resolve_device(device))
     dev = plan.idx.device
     iv = eng.intervals
     M = eng.n_internal_vertices
@@ -534,8 +733,14 @@ def _two_hop_dense(eng: StorageEngine, seeds: np.ndarray, direction: str,
         with telemetry.span("x.multihop.expand"):
             x = _indicator(M, si[c0:c0 + _SEED_BLOCK])
             c1 = frontier_expand_counts(plan, x)        # (M, B) 0/1: edges
+            if delta is not None:
+                _apply_delta(c1, x, delta)
             del x
-            c2 = frontier_expand_counts(plan, (c1 > 0).to(torch.float32))
+            b1 = (c1 > 0).to(torch.float32)
+            c2 = frontier_expand_counts(plan, b1)
+            if delta is not None:
+                _apply_delta(c2, b1, delta)
+            del b1
         with telemetry.span("x.multihop.readback"):
             nz = torch.nonzero(c2)
             w, j = nz[:, 0], nz[:, 1]

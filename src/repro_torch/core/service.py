@@ -61,7 +61,10 @@ Host copy of the reference `repro/core/service.py` (numpy): the same
 store and session directories byte for byte, so either package opens the
 other's. `Snapshot.snapshot` compiles to the port's torch `DeviceGraph`
 (core/psw.py), and the dense hops on a `read_view()` run the port's
-frontier_expand kernel (core/multihop.py).
+frontier_expand kernel (core/multihop.py) on a base plan that outlives
+publications, plus the view's delta from the tree's mutation log: a write
+does not make the next view rebuild its plan. `GraphDB.bulk_load` writes a
+store's initial edges straight into its leaf partitions.
 """
 from __future__ import annotations
 

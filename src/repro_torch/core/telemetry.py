@@ -58,8 +58,8 @@ into the same namespace without taxing their write paths at all.
 
 Host copy of the reference `repro/core/telemetry.py`, with a CATALOG of
 the port's own: the reference's names, less `multihop.hop.seconds`, plus
-the ``x.`` spans inside the fof request, the frontier_expand wrapper and
-the PSW sweep.
+the ``x.`` spans inside the fof request, the live dense plan's delta and
+base builds, the frontier_expand wrapper and the PSW sweep.
 """
 from __future__ import annotations
 
@@ -163,6 +163,18 @@ CATALOG: Dict[str, Tuple[str, str]] = {
                             "dense 2-hop after the last block: concatenate, "
                             "offsets, one copy of the answer to the host; "
                             "tag pairs"),
+    "x.multihop.delta": ("span",
+                         "a live view's dense-plan delta: fold the store's "
+                         "mutation log up to the view, reduce it to changes "
+                         "of key presence, upload the new entries; tag "
+                         "delta_edges, the signed entries applied"),
+    "x.multihop.base_build": ("span",
+                              "a live store's base dense plan built from a "
+                              "view's edge set (first use, a delta past "
+                              "LIVE_DELTA_MAX, a log that no longer reaches "
+                              "back)"),
+    "x.multihop.base_builds": ("counter",
+                               "live base dense plans built"),
     # --- frontier_expand kernel (kernels/frontier_expand/ops.py) ---
     "x.frontier_expand.counts": ("span",
                                  "one frontier_expand_counts call past its "
