@@ -402,14 +402,16 @@ def phase_bulk(torch, core, fe_ops, dev, args, clock):
           "kernel_layout differs from the resident plan's")
     del lay
     counts = plan.edge_ptr[1:] - plan.edge_ptr[:-1]
+    heavy = counts > plan.light_edges
     rows = int((plan.row_dst < plan.n_dst).sum())
     log(f"  plan: {plan.n_edges} distinct edges, {rows} virtual rows "
         f"(K={plan.k_slots}), {plan.idx.shape[0]} padded; compact layout "
-        f"{plan.col.shape[0]} edges; {plan.heavy_dst.shape[0]} heavy "
+        f"{plan.col.shape[0]} edges; {int(heavy.sum())} heavy "
         f"destinations (> {plan.light_edges} edges, "
-        f"{int(counts[plan.heavy_dst].sum())} edges) in "
-        f"{plan.chunks.shape[0]} chunks of <= {plan.chunk_edges}, longest "
-        f"{int(counts.max())} edges")
+        f"{int(counts[heavy].sum())} edges) in "
+        f"{plan.chunks.shape[0]} chunks of <= {plan.chunk_edges}, "
+        f"{plan.reduced_hubs} of them in {plan.scratch_rows} chunks summed "
+        f"by pass 2; longest {int(counts.max())} edges")
     rng = np.random.default_rng(args.seed + 1)
     seeds = rng.choice(args.vertices, 256, replace=False)
 
@@ -537,7 +539,7 @@ def kernel_vs_plain(torch, fe, kernel, plan, x, reps: int) -> dict:
     torch.sparse.mm yardstick on the plan's own CSR."""
     B = int(x.shape[1])
     out = torch.empty((plan.n_dst, B), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((plan.chunks.shape[0], B), dtype=torch.float32,
+    scratch = torch.empty((plan.scratch_rows, B), dtype=torch.float32,
                           device=x.device)
     flags = torch.empty((plan.n_src, -(-B // kernel.TILE) if B >= 32 else 0),
                         dtype=torch.uint8, device=x.device)

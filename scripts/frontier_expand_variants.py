@@ -13,11 +13,11 @@ The graph is chip_smoke.py phase 1's (4M vertices, 56M power-law edges,
 `--vertices` / `--edges` to cut it), deduplicated and laid out as the
 kernel's compact CSR directly on the card (original ids, so it differs
 from the store's plan only by the interval relabelling). Panels: B = 1
-(half the vertices), two_hop's hop-2 panel of 128 random seeds, and a dense
-30% 0/1 panel at B = 128. Each variant's result is checked bitwise against
-`torch.sparse.mm` of the same CSR, which is timed beside them (CUDA events,
-the best of 3 means over --reps launches). Run from the repository root;
-prints one line per (panel, variant).
+(half the vertices), two_hop's hop-2 panels of 64 and 128 random seeds,
+and a dense 30% 0/1 panel at B = 128. Each variant's result is checked
+bitwise against `torch.sparse.mm` of the same CSR, which is timed beside
+them (CUDA events, the best of 3 means over --reps launches). Run from the
+repository root; prints one line per (panel, variant).
 """
 import argparse
 import dataclasses
@@ -38,11 +38,14 @@ class Layout:
     """The fields of a FrontierPlan that the kernel reads."""
     col: object
     edge_ptr: object
-    heavy_dst: object
-    heavy_ptr: object
     chunks: object
+    chunk_row: object
+    reduce_dst: object
+    reduce_ptr: object
     light_edges: int
     chunk_edges: int
+    reduced_hubs: int
+    scratch_rows: int
     n_src: int
     n_dst: int
 
@@ -90,6 +93,8 @@ def main() -> None:
     x[seeds, torch.arange(128, device=dev)] = 1.0
     panels = (("B=1 half the vertices",
                (torch.rand((n, 1), generator=gen, device=dev) < 0.5).float()),
+              ("B=64 hop-2 panel",
+               (torch.sparse.mm(adj, x[:, :64].contiguous()) > 0).float()),
               ("B=128 hop-2 panel", (torch.sparse.mm(adj, x) > 0).float()),
               ("B=128 dense 30%",
                (torch.rand((n, 128), generator=gen, device=dev) < 0.3)
@@ -105,7 +110,7 @@ def main() -> None:
                 edge_ptr, consts.get("LIGHT_EDGES", ops.LIGHT_EDGES),
                 consts.get("CHUNK_EDGES", ops.CHUNK_EDGES)))
             out = torch.empty_like(want)
-            scratch = torch.empty((lay.chunks.shape[0], B), device=dev)
+            scratch = torch.empty((lay.scratch_rows, B), device=dev)
             flags = torch.empty((n, -(-B // fk.TILE) if B >= 32 else 0),
                                 dtype=torch.uint8, device=dev)
 
@@ -116,7 +121,8 @@ def main() -> None:
             ok = torch.equal(out, want)
             ms = min(cs.cuda_ms(torch, run, args.reps) for _ in range(3))
             print(f"{name} {variant}: {ms:.4f} ms, {lay.chunks.shape[0]} "
-                  f"chunks, equal to torch.sparse.mm: {ok}", flush=True)
+                  f"chunks, {lay.reduced_hubs} hubs summed by pass 2, "
+                  f"equal to torch.sparse.mm: {ok}", flush=True)
         ms = min(cs.cuda_ms(torch, lambda: torch.sparse.mm(adj, x), args.reps)
                  for _ in range(3))
         print(f"{name} torch.sparse.mm: {ms:.4f} ms", flush=True)

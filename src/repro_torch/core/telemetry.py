@@ -178,7 +178,11 @@ CATALOG: Dict[str, Tuple[str, str]] = {
     # --- frontier_expand kernel (kernels/frontier_expand/ops.py) ---
     "x.frontier_expand.counts": ("span",
                                  "one frontier_expand_counts call past its "
-                                 "argument checks (kernel or plain torch)"),
+                                 "argument checks (kernel or plain torch); "
+                                 "tag B, the panel's columns, and "
+                                 "reduced_hubs, the plan's hubs of more "
+                                 "than one chunk, whose chunks the "
+                                 "kernel's second pass sums"),
     # --- device PSW (core/psw.py) ---
     "x.psw.pagerank": ("span", "one pagerank_device call"),
     "x.psw.window_gather": ("span",

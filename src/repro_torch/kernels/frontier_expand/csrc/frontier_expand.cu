@@ -15,13 +15,18 @@
 //   edge_ptr (n_dst + 1) edges of d are col[edge_ptr[d]:edge_ptr[d + 1]];
 //   chunks (C, 2)        [edge begin, edge end) pieces of at most
 //                        `chunk_edges` edges of each heavy destination (one
-//                        with more than `light_edges` edges), whose partials
-//                        pass 2 sums per destination (heavy_dst, heavy_ptr).
+//                        with more than `light_edges` edges); first the S
+//                        chunks of the hubs of several chunks, then the
+//                        lone chunks of the others;
+//   chunk_row (C,)       the row chunk c writes: scratch row c (c < S), or
+//                        its destination's row of out (a lone chunk);
+//   reduce_dst, reduce_ptr  the CSR from the hubs of several chunks to
+//                        their scratch rows, which pass 2 sums per hub.
 //
 // Work split. A warp walks one "group": 32 consecutive destinations (lane j
-// owns destination 32w + j; a heavy one counts 0 edges and is left to pass
-// 2) or one hub chunk (lane 0 owns it). Lanes stream the group's edges as
-// one contiguous range, 32 at a time, with coalesced `col` loads; a lane
+// owns destination 32w + j; a heavy one counts 0 edges and is left to its
+// chunks) or one hub chunk (lane 0 owns it). Lanes stream the group's edges
+// as one contiguous range, 32 at a time, with coalesced `col` loads; a lane
 // finds the owner of its edge by a binary search over the lanes' exclusive
 // prefix of edge counts. No warp walks more than max(32 * light_edges,
 // chunk_edges) edges, so a power-law hub cannot hold the launch behind one
@@ -42,10 +47,12 @@
 //
 // Summation. No atomics, and a fixed order: a destination's edges in edge
 // order (narrow: per 32-edge window a fixed scan tree, windows in order;
-// wide: one add per flagged row, from 0, in edge order), hub chunks summed
-// by pass 2 in a fixed strided-then-tree order. So results are
-// deterministic. A skipped row holds only +-0, and adding +-0 to a partial
-// that starts at +0 changes no bit, so skipping never changes the result.
+// wide: one add per flagged row, from 0, in edge order), the chunk sums
+// of a hub of several chunks added by pass 2 in a fixed strided-then-tree
+// order. So results are deterministic. A hub of one chunk writes its sum p as its row, which is
+// 0 + p bit for bit (p starts at +0, so it is never -0). A skipped row
+// holds only +-0, and adding +-0 to a partial that starts at +0 changes no
+// bit, so skipping never changes the result.
 // The plain torch version (ref.py) sums per ELL row and then per
 // destination: the two agree bitwise wherever the sums are exact (the 0/1
 // and small-integer panels of the multi-hop path, with counts below 2**24),
@@ -76,15 +83,18 @@ struct Walk {
   const int32_t* col;       // (E,)
   const int64_t* edge_ptr;  // (n_dst + 1,)
   const int64_t* chunks;    // (n_chunks, 2): [edge begin, edge end)
+  const int64_t* chunk_row; // (n_chunks,): scratch row or destination
   int64_t n_dst;
   int64_t n_groups;         // destination groups: ceil(n_dst / 32)
   int64_t n_chunks;
+  int64_t n_scratch;        // chunks [0, n_scratch) write scratch
   int light_edges;
 };
 
 // Lane's item in warp w: its edge range, and the row it writes (a
 // destination of `out`, or a chunk of `scratch`); count 0 and no write for
 // lanes past n_dst, heavy destinations, and lanes 1..31 of a chunk warp.
+// Warp w writes `scratch` iff it walks one of the first n_scratch chunks.
 struct Item {
   int64_t begin;
   int64_t row;
@@ -104,9 +114,13 @@ __device__ __forceinline__ Item lane_item(const Walk& p, int64_t w,
   } else if (lane == 0) {
     const int64_t c = w - p.n_groups;
     const int64_t b = p.chunks[2 * c];
-    it = Item{b, c, (int)(p.chunks[2 * c + 1] - b), true};
+    it = Item{b, p.chunk_row[c], (int)(p.chunks[2 * c + 1] - b), true};
   }
   return it;
+}
+
+__device__ __forceinline__ bool to_scratch(const Walk& p, int64_t w) {
+  return w >= p.n_groups && w - p.n_groups < p.n_scratch;
 }
 
 // Exclusive prefix of v over the warp's lanes; *total gets the sum.
@@ -188,7 +202,7 @@ expand_narrow(Walk p, const float* __restrict__ x, float* __restrict__ out,
   int total;
   const int off = warp_exclusive_scan(it.count, lane, &total);
   const int64_t base = it.begin - off;  // edge of position t of lane's item
-  float* dst = w < p.n_groups ? out : scratch;
+  float* dst = to_scratch(p, w) ? scratch : out;
   for (int j = 0; j < B; ++j) {
     float acc = 0.f;
     for (int t0 = 0; t0 < total; t0 += kWarp) {
@@ -252,7 +266,7 @@ expand_wide(Walk p, const float* __restrict__ x,
   int total;
   const int off = warp_exclusive_scan(it.count, lane, &total);
   const int64_t base = it.begin - off;
-  float* dst = w < p.n_groups ? out : scratch;
+  float* dst = to_scratch(p, w) ? scratch : out;
   const unsigned writes = __ballot_sync(kAll, it.write);
   unsigned touched = 0;  // owners whose row has been written
   int cur = -1;          // owner whose sum `acc` holds (warp-uniform)
@@ -317,24 +331,24 @@ expand_wide(Walk p, const float* __restrict__ x,
   }
 }
 
-// Pass 2: one block per (heavy destination, tile of tc columns; tc a power
-// of two, B's if B < 32, else 32). kReduceThreads / tc splits stride over
-// the destination's chunks in order, then a fixed tree adds the splits.
+// Pass 2: one block per (hub of several chunks, tile of tc columns; tc a
+// power of two, B's if B < 32, else 32). kReduceThreads / tc splits stride
+// over the hub's scratch rows in order, then a fixed tree adds the splits.
 __global__ void __launch_bounds__(kReduceThreads)
-reduce_heavy(const int64_t* __restrict__ heavy_dst,
-             const int64_t* __restrict__ heavy_ptr,
-             const float* __restrict__ scratch, float* __restrict__ out,
-             int B, int tc) {
+reduce_hubs(const int64_t* __restrict__ reduce_dst,
+            const int64_t* __restrict__ reduce_ptr,
+            const float* __restrict__ scratch, float* __restrict__ out,
+            int B, int tc) {
   __shared__ float part[kReduceThreads];
   const int h = blockIdx.x;
   const int cl = threadIdx.x % tc, split = threadIdx.x / tc;
   const int splits = kReduceThreads / tc;
   const int64_t j = (int64_t)blockIdx.y * tc + cl;
-  const int64_t c1 = heavy_ptr[h + 1];
+  const int64_t c1 = reduce_ptr[h + 1];
   float acc = 0.f;
   if (j < B) {
 #pragma unroll 4
-    for (int64_t c = heavy_ptr[h] + split; c < c1; c += splits)
+    for (int64_t c = reduce_ptr[h] + split; c < c1; c += splits)
       acc += scratch[c * B + j];
   }
   part[threadIdx.x] = acc;
@@ -343,23 +357,25 @@ reduce_heavy(const int64_t* __restrict__ heavy_dst,
     if (split < half) part[threadIdx.x] += part[threadIdx.x + half * tc];
     __syncthreads();
   }
-  if (split == 0 && j < B) out[heavy_dst[h] * B + j] = part[cl];
+  if (split == 0 && j < B) out[reduce_dst[h] * B + j] = part[cl];
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches pass 0 (B >= 32), pass 1 and pass 2 (when there are heavy
-// destinations) on `stream` (the caller's current torch stream) and returns
+// Launches pass 0 (B >= 32), pass 1 and pass 2 (when a hub has several
+// chunks) on `stream` (the caller's current torch stream) and returns
 // cudaGetLastError() as an int: 0 when the launches were accepted. `flags`
-// holds n_src * ceil(B / 128) bytes when B >= 32 and is unused otherwise.
+// holds n_src * ceil(B / 128) bytes when B >= 32 and is unused otherwise;
+// `scratch` holds n_scratch rows of B.
 int frontier_expand_launch(const void* col, const void* edge_ptr,
-                           const void* chunks, const void* heavy_dst,
-                           const void* heavy_ptr, const void* x, void* out,
-                           void* scratch, void* flags, long long n_src,
-                           long long n_dst, long long n_chunks,
-                           long long n_heavy, int light_edges, int B,
+                           const void* chunks, const void* chunk_row,
+                           const void* reduce_dst, const void* reduce_ptr,
+                           const void* x, void* out, void* scratch,
+                           void* flags, long long n_src, long long n_dst,
+                           long long n_chunks, long long n_scratch,
+                           long long n_reduce, int light_edges, int B,
                            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -367,7 +383,8 @@ int frontier_expand_launch(const void* col, const void* edge_ptr,
   cudaStream_t st = (cudaStream_t)stream;
   const long long n_groups = (n_dst + kWarp - 1) / kWarp;
   Walk p{(const int32_t*)col, (const int64_t*)edge_ptr,
-         (const int64_t*)chunks, n_dst, n_groups, n_chunks, light_edges};
+         (const int64_t*)chunks, (const int64_t*)chunk_row, n_dst, n_groups,
+         n_chunks, n_scratch, light_edges};
   const float* xp = (const float*)x;
   float* o = (float*)out;
   float* s = (float*)scratch;
@@ -400,12 +417,12 @@ int frontier_expand_launch(const void* col, const void* edge_ptr,
       expand_wide<false><<<grid, block, 0, st>>>(p, xp, f, o, s, B, n_tiles);
   }
   err = cudaGetLastError();
-  if (err != cudaSuccess || n_heavy == 0) return (int)err;
+  if (err != cudaSuccess || n_reduce == 0) return (int)err;
   int tc = 1;
   while (tc < B && tc < kWarp) tc *= 2;
-  const dim3 grid((unsigned)n_heavy, (unsigned)((B + tc - 1) / tc));
-  reduce_heavy<<<grid, kReduceThreads, 0, st>>>(
-      (const int64_t*)heavy_dst, (const int64_t*)heavy_ptr, s, o, B, tc);
+  const dim3 grid((unsigned)n_reduce, (unsigned)((B + tc - 1) / tc));
+  reduce_hubs<<<grid, kReduceThreads, 0, st>>>(
+      (const int64_t*)reduce_dst, (const int64_t*)reduce_ptr, s, o, B, tc);
   return (int)cudaGetLastError();
 }
 

@@ -8,9 +8,11 @@ torch ops, the compact layout the CUDA kernel reads instead
 each destination's edges are contiguous and in slot order, and `edge_ptr`,
 the CSR over them. A destination with more than `light_edges` edges (a
 power-law hub) is "heavy": `chunks` cuts its edges into pieces of at most
-`chunk_edges`, which the kernel sums in parallel and then reduces per
-destination (`heavy_dst`, `heavy_ptr`: the CSR from heavy destinations to
-their chunks).
+`chunk_edges`, which the kernel sums in parallel. `chunk_row` is where each
+chunk's sum goes: a hub of one chunk (most of them) writes its row of the
+output directly; a hub of several writes a row of scratch per chunk, and
+the kernel's second pass sums those per hub (`reduce_dst`, `reduce_ptr`:
+the CSR from these hubs to their scratch rows).
 
 Virtual-row ELL: the deduplicated edge set, grouped by destination, is
 split into rows of at most `k_slots` sources — a destination of degree d
@@ -69,11 +71,15 @@ class FrontierPlan:
     col: torch.Tensor = None        # (E,) int32 sources, row-major
     edge_ptr: torch.Tensor = None   # (n_dst + 1,) int64: edges of d are
     #                                 col[edge_ptr[d]:edge_ptr[d + 1]]
-    heavy_dst: torch.Tensor = None  # (H,) int64 destinations > light_edges
-    heavy_ptr: torch.Tensor = None  # (H + 1,) int64 CSR into chunks
     chunks: torch.Tensor = None     # (C, 2) int64 [edge begin, edge end)
+    chunk_row: torch.Tensor = None  # (C,) int64 scratch row (c < S) or
+    #                                 destination (lone chunk) of chunk c
+    reduce_dst: torch.Tensor = None  # (H,) int64 hubs of several chunks
+    reduce_ptr: torch.Tensor = None  # (H + 1,) int64 CSR into scratch rows
     light_edges: int = LIGHT_EDGES
     chunk_edges: int = CHUNK_EDGES
+    reduced_hubs: int = 0           # H: the hubs the second pass sums
+    scratch_rows: int = 0           # S: their chunks, chunks[:S]
 
 
 def kernel_layout(idx: torch.Tensor, mask: torch.Tensor,
@@ -96,24 +102,35 @@ def kernel_layout(idx: torch.Tensor, mask: torch.Tensor,
 
 def hub_chunks(edge_ptr: torch.Tensor, light_edges: int = LIGHT_EDGES,
                chunk_edges: int = CHUNK_EDGES) -> dict:
-    """The destinations with more than `light_edges` edges, and their edge
-    ranges cut into chunks of at most `chunk_edges`, on edge_ptr's
-    device."""
+    """The destinations with more than `light_edges` edges cut into chunks
+    of at most `chunk_edges`, on edge_ptr's device. The chunks of hubs of
+    several chunks come first, hub by hub in destination order, and chunk c
+    of them writes scratch row c; the lone chunks of the other hubs follow
+    and write their destination's row of the output. Synchronizes once, for
+    the host counts `reduced_hubs` and `scratch_rows`."""
     dev = edge_ptr.device
     counts = edge_ptr[1:] - edge_ptr[:-1]
     heavy = torch.nonzero(counts > light_edges).squeeze(1)
     n_chunks = (counts[heavy] + chunk_edges - 1) // chunk_edges
-    heavy_ptr = torch.zeros(heavy.shape[0] + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(n_chunks, 0, out=heavy_ptr[1:])
+    several = n_chunks > 1
+    hubs = torch.cat([heavy[several], heavy[~several]])
+    n_chunks = torch.cat([n_chunks[several], n_chunks[~several]])
+    ptr = torch.zeros(hubs.shape[0] + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(n_chunks, 0, out=ptr[1:])
     owner = torch.repeat_interleave(
-        torch.arange(heavy.shape[0], device=dev), n_chunks)
-    begin = (edge_ptr[heavy][owner]
-             + (torch.arange(owner.shape[0], device=dev) - heavy_ptr[owner])
+        torch.arange(hubs.shape[0], device=dev), n_chunks)
+    begin = (edge_ptr[hubs][owner]
+             + (torch.arange(owner.shape[0], device=dev) - ptr[owner])
              * chunk_edges)
-    end = torch.minimum(begin + chunk_edges, edge_ptr[heavy + 1][owner])
-    return {"heavy_dst": heavy, "heavy_ptr": heavy_ptr,
-            "chunks": torch.stack([begin, end], 1),
-            "light_edges": light_edges, "chunk_edges": chunk_edges}
+    end = torch.minimum(begin + chunk_edges, edge_ptr[hubs + 1][owner])
+    n_reduce = int(several.sum())
+    n_scratch = int(ptr[n_reduce])
+    chunk_row = torch.cat([torch.arange(n_scratch, device=dev),
+                           hubs[n_reduce:]])
+    return {"chunks": torch.stack([begin, end], 1), "chunk_row": chunk_row,
+            "reduce_dst": hubs[:n_reduce], "reduce_ptr": ptr[:n_reduce + 1],
+            "light_edges": light_edges, "chunk_edges": chunk_edges,
+            "reduced_hubs": n_reduce, "scratch_rows": n_scratch}
 
 
 def unique_sorted(a) -> np.ndarray:
@@ -201,14 +218,15 @@ def frontier_expand_counts(plan: FrontierPlan, x: torch.Tensor) -> torch.Tensor:
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no frontier-expansion path for {x.device}")
     B = x.shape[1]
-    with telemetry.span("x.frontier_expand.counts", B=B):
+    with telemetry.span("x.frontier_expand.counts", B=B,
+                        reduced_hubs=plan.reduced_hubs):
         if x.device.type == "cpu":
             return frontier_expand_torch(plan.idx, plan.mask, x,
                                          plan.row_dst, plan.n_dst)
         out = torch.empty((plan.n_dst, B), dtype=torch.float32,
                           device=x.device)
         if out.numel():
-            scratch = torch.empty((plan.chunks.shape[0], B),
+            scratch = torch.empty((plan.scratch_rows, B),
                                   dtype=torch.float32, device=x.device)
             flags = torch.empty(
                 (plan.n_src, cdiv(B, _kernel.TILE) if B >= 32 else 0),

@@ -85,9 +85,14 @@ def test_counts_bitwise_equal_reference(kind, b):
 
 def emulate_kernel(plan, x: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel's walk in torch: each light destination sums its CSR
-    range col[edge_ptr[d]:edge_ptr[d + 1]] in edge order, a heavy one the
-    partials of its chunks; for B >= 32 an edge whose source's 128-column
-    tile holds only +-0 is skipped (never read), as the kernel's flags do."""
+    range col[edge_ptr[d]:edge_ptr[d + 1]] in edge order, each hub chunk
+    its range into the row `chunk_row` names (a scratch row for the first
+    `scratch_rows` chunks, else its destination's output row), and pass 2
+    adds a reduced hub's scratch rows (here from 0 in chunk order; the
+    kernel's strided-then-tree order gives the same bits on these
+    small-integer panels); for B >= 32 an edge whose source's 128-column
+    tile holds only +-0 is skipped (never read), as the kernel's flags
+    do."""
     n, b = plan.n_dst, x.shape[1]
     col = plan.col.long()
     keep = torch.ones((x.shape[0], b), dtype=torch.bool)
@@ -104,19 +109,28 @@ def emulate_kernel(plan, x: torch.Tensor) -> torch.Tensor:
 
     counts = plan.edge_ptr[1:] - plan.edge_ptr[:-1]
     out = torch.full((n, b), float("nan"))
+    scratch = torch.full((plan.scratch_rows, b), float("nan"))
     for d in torch.nonzero(counts <= plan.light_edges).squeeze(1).tolist():
         out[d] = walk(*plan.edge_ptr[d:d + 2].tolist())
-    parts = [walk(e0, e1) for e0, e1 in plan.chunks.tolist()]
-    for h, d in enumerate(plan.heavy_dst.tolist()):
-        lo, hi = plan.heavy_ptr[h:h + 2].tolist()
-        out[d] = torch.stack(parts[lo:hi]).sum(0)
+    for c, ((e0, e1), row) in enumerate(zip(plan.chunks.tolist(),
+                                            plan.chunk_row.tolist())):
+        (scratch if c < plan.scratch_rows else out)[row] = walk(e0, e1)
+    for h, d in enumerate(plan.reduce_dst.tolist()):
+        lo, hi = plan.reduce_ptr[h:h + 2].tolist()
+        acc = torch.zeros(b)
+        for c in range(lo, hi):
+            acc = acc + scratch[c]
+        out[d] = acc
     return out
 
 
 def check_compact_layout(plan, ref) -> None:
     """The kernel layout against the reference plan's idx/mask/row_dst:
-    every destination's edges in slot order, and hub chunks that cover each
-    heavy destination's edges once, in order, at most chunk_edges each."""
+    every destination's edges in slot order; hub chunks that cover each
+    heavy destination's edges once, in order, at most chunk_edges each;
+    a hub of one chunk whose chunk targets its destination, and hubs of
+    several (those pass 2 reduces) whose chunks come first and target
+    scratch rows 0..scratch_rows - 1, each once, in order."""
     n = ref.n_dst
     col, ptr = plan.col.numpy(), plan.edge_ptr.numpy()
     assert col.dtype == np.int32 and ptr.dtype == np.int64
@@ -129,15 +143,29 @@ def check_compact_layout(plan, ref) -> None:
         assert np.array_equal(col[ptr[d]:ptr[d + 1]], want), d
     counts = np.diff(ptr)
     heavy = np.flatnonzero(counts > plan.light_edges)
-    assert np.array_equal(plan.heavy_dst.numpy(), heavy)
-    hp, ch = plan.heavy_ptr.numpy(), plan.chunks.numpy()
-    assert hp[0] == 0 and hp[-1] == ch.shape[0]
-    for h, d in enumerate(heavy):
+    several = -(-counts[heavy] // plan.chunk_edges) > 1
+    reduced, lone = heavy[several], heavy[~several]
+    ch, row = plan.chunks.numpy(), plan.chunk_row.numpy()
+    assert ch.dtype == row.dtype == np.int64
+    assert ch.shape == (row.shape[0], 2)
+    assert ((ch[:, 1] - ch[:, 0]) <= plan.chunk_edges).all()
+    assert ((ch[:, 1] - ch[:, 0]) > 0).all()
+    # hubs of several chunks: pass 2's CSR over scratch rows 0..S-1
+    assert np.array_equal(plan.reduce_dst.numpy(), reduced)
+    assert plan.reduced_hubs == reduced.shape[0]
+    hp, S = plan.reduce_ptr.numpy(), plan.scratch_rows
+    assert hp.shape == (reduced.shape[0] + 1,) and hp[0] == 0 and hp[-1] == S
+    assert np.array_equal(row[:S], np.arange(S))   # each once, in order
+    for h, d in enumerate(reduced):
         c = ch[hp[h]:hp[h + 1]]
+        assert c.shape[0] == -(-counts[d] // plan.chunk_edges) > 1
         assert c[0, 0] == ptr[d] and c[-1, 1] == ptr[d + 1]
         assert np.array_equal(c[1:, 0], c[:-1, 1])
-        assert ((c[:, 1] - c[:, 0]) <= plan.chunk_edges).all()
-        assert ((c[:, 1] - c[:, 0]) > 0).all()
+    # hubs of one chunk: the chunk is the whole range, written to its row
+    assert ch.shape[0] == S + lone.shape[0]
+    assert np.array_equal(row[S:], lone)
+    assert np.array_equal(ch[S:, 0], ptr[lone])
+    assert np.array_equal(ch[S:, 1], ptr[lone + 1])
 
 
 @pytest.mark.parametrize("kind", ["random", "hub", "empty"])
@@ -147,11 +175,11 @@ def test_kernel_layout_covers_every_row(kind):
     plan = plan_to_device(build_frontier_plan(src, dst, n, n), "cpu")
     check_compact_layout(plan, ref)
     if kind == "hub":
-        assert 17 in plan.heavy_dst.tolist()   # the 5000-source hub is split
-        h = plan.heavy_dst.tolist().index(17)
+        assert 17 in plan.reduce_dst.tolist()  # the 5000-source hub is split
+        h = plan.reduce_dst.tolist().index(17)
         count = int(plan.edge_ptr[18] - plan.edge_ptr[17])
         assert count >= 5000
-        assert int(plan.heavy_ptr[h + 1] - plan.heavy_ptr[h]) == \
+        assert int(plan.reduce_ptr[h + 1] - plan.reduce_ptr[h]) == \
             -(-count // plan.chunk_edges)
 
 
@@ -225,13 +253,51 @@ def test_kernel_work_split_matches_plain(kind, b):
                        frontier_expand_counts(plan, x))
 
 
+@pytest.mark.parametrize("extra", [1, ops.CHUNK_EDGES - ops.LIGHT_EDGES,
+                                   ops.CHUNK_EDGES - ops.LIGHT_EDGES + 1])
+@pytest.mark.parametrize("b", [1, 64, 130])
+def test_hubs_at_the_split(extra, b):
+    """Hubs of exactly light_edges + 1 edges and of chunk_edges edges are
+    one chunk each, written straight to their rows; one of chunk_edges + 1
+    edges is two chunks, summed by pass 2. Destination 5 has
+    light_edges + extra distinct sources, 9 has one edge fewer, 13 one
+    more; each walk bitwise equal to frontier_expand_counts."""
+    rng = np.random.default_rng(extra + b)
+    n = 3000
+    hubs = {d: ops.LIGHT_EDGES + extra + k for d, k in ((5, 0), (9, -1),
+                                                         (13, 1))}
+    dst = rng.integers(0, n, 4000)
+    dst = np.where(np.isin(dst, list(hubs)), dst + 1, dst)   # light others
+    src = np.concatenate([rng.integers(0, n, 4000)]
+                         + [rng.choice(n, m, replace=False)
+                            for m in hubs.values()])
+    dst = np.concatenate([dst] + [np.full(m, d) for d, m in hubs.items()])
+    ref = ref_build(src, dst, n, n)
+    plan = plan_to_device(build_frontier_plan(src, dst, n, n), "cpu")
+    check_compact_layout(plan, ref)
+    for d, m in hubs.items():
+        assert int(plan.edge_ptr[d + 1] - plan.edge_ptr[d]) == m
+        pieces = -(-m // plan.chunk_edges) if m > plan.light_edges else 0
+        where = plan.chunk_row.tolist()
+        if pieces == 1:       # one chunk: it writes the destination's row
+            c = where.index(d, plan.scratch_rows)
+            assert plan.chunks[c].tolist() == plan.edge_ptr[d:d + 2].tolist()
+        assert (d in plan.reduce_dst.tolist()) == (pieces > 1)
+    x = torch.from_numpy(panel(n, b, seed=b + 7))
+    assert torch.equal(emulate_kernel(plan, x),
+                       frontier_expand_counts(plan, x))
+
+
 def test_plan_from_reference_arrays():
     src, dst, n = graph("hub", seed=5)
     ref = ref_build(src, dst, n, n)
     plan = convert.plan_from_arrays(convert.plan_to_arrays(ref), "cpu")
     own = plan_to_device(build_frontier_plan(src, dst, n, n), "cpu")
-    for name in ("col", "edge_ptr", "heavy_dst", "heavy_ptr", "chunks"):
+    for name in ("col", "edge_ptr", "chunks", "chunk_row", "reduce_dst",
+                 "reduce_ptr"):
         assert torch.equal(getattr(plan, name), getattr(own, name))
+    for name in ("reduced_hubs", "scratch_rows"):
+        assert getattr(plan, name) == getattr(own, name) > 0
     x = panel(n, 5, seed=6)
     assert np.array_equal(
         frontier_expand_counts(plan, torch.from_numpy(x)).numpy(),

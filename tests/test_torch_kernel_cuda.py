@@ -128,9 +128,9 @@ def test_frontier_hub_above_the_edge_split(cuda, b):
                           rng.choice(n, 12000, replace=False)])
     dst = np.concatenate([rng.integers(0, n, 60000), np.full(12000, 11)])
     plan = plan_to_device(build_frontier_plan(src, dst, n, n), cuda)
-    assert 11 in plan.heavy_dst.tolist()
-    h = plan.heavy_dst.tolist().index(11)
-    assert int(plan.heavy_ptr[h + 1] - plan.heavy_ptr[h]) >= \
+    assert 11 in plan.reduce_dst.tolist()
+    h = plan.reduce_dst.tolist().index(11)
+    assert int(plan.reduce_ptr[h + 1] - plan.reduce_ptr[h]) >= \
         12000 // plan.chunk_edges
     x = (torch.rand((n, b), device=cuda) < 0.5).to(torch.float32)
     got = frontier_expand_counts(plan, x)
@@ -138,6 +138,48 @@ def test_frontier_hub_above_the_edge_split(cuda, b):
     assert torch.equal(got, want)
     assert torch.equal(frontier_expand_counts(plan, x), got)
     assert int(got[11].max()) > 4000
+
+
+@pytest.mark.parametrize("b", [1, 64, 128, 130])
+def test_frontier_lone_and_reduced_hub_chunks(cuda, b):
+    """Hubs of one chunk (light_edges + 1 and chunk_edges sources), which
+    write their own rows, beside hubs of several (chunk_edges + 1 and
+    12,000 sources), whose chunk sums pass 2 adds: bitwise the CPU's, and
+    bitwise across two launches. Scratch has a row for each chunk of the
+    hubs of several chunks and no other, and the launch writes each."""
+    from repro_torch.kernels.frontier_expand import kernel as fk
+    rng = np.random.default_rng(b)
+    n, c = 20000, ops.CHUNK_EDGES
+    hubs = {11: 12000, 12: c + 1, 13: c, 14: ops.LIGHT_EDGES + 1}
+    dst = rng.integers(0, n, 60000)
+    dst = np.where(np.isin(dst, list(hubs)), dst + 10, dst)
+    src = np.concatenate([rng.integers(0, n, 60000)]
+                         + [rng.choice(n, m, replace=False)
+                            for m in hubs.values()])
+    dst = np.concatenate([dst] + [np.full(m, d) for d, m in hubs.items()])
+    host = build_frontier_plan(src, dst, n, n)
+    plan = plan_to_device(host, cuda)
+    assert plan.reduce_dst.tolist() == [11, 12]
+    assert plan.scratch_rows == -(-12000 // c) + 2 < plan.chunks.shape[0]
+    lone = plan.chunk_row[plan.scratch_rows:].tolist()
+    assert 13 in lone and 14 in lone
+    x = (rng.random((n, b)) < 0.3).astype(np.float32)
+    x[rng.random((n, b)) < 0.02] = 3.0
+    x = torch.from_numpy(x)
+    got = frontier_expand_counts(plan, x.to(cuda))
+    assert torch.equal(frontier_expand_counts(plan, x.to(cuda)), got)
+    assert torch.equal(got.cpu(),
+                       frontier_expand_counts(plan_to_device(host, "cpu"), x))
+    out = torch.empty_like(got)
+    scratch = torch.full((plan.scratch_rows, b), float("nan"), device=cuda)
+    flags = torch.empty((n, -(-b // fk.TILE) if b >= 32 else 0),
+                        dtype=torch.uint8, device=cuda)
+    fk.launch(plan, x.to(cuda), out, scratch, flags)
+    torch.cuda.synchronize()
+    assert torch.equal(out, got) and not scratch.isnan().any()
+    for h, d in enumerate(plan.reduce_dst.tolist()):
+        lo, hi = plan.reduce_ptr[h:h + 2].tolist()
+        assert torch.equal(scratch[lo:hi].sum(0), got[d])
 
 
 @pytest.mark.parametrize("b", [32, 128])

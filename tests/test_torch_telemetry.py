@@ -249,12 +249,42 @@ def test_fof_request_phases(exclude, events):
         if e["name"] == "x.frontier_expand.counts":
             assert up[0] == "x.multihop.expand"
             assert e["args"]["B"] in (128, 44)
+            assert e["args"]["reduced_hubs"] == T.dense_plan(
+                g, "out", device="cpu").reduced_hubs
     want = T.two_hop_counts(g, seeds, dense="never", exclude=exclude)
     assemble, = (e for e in evs if e["name"] == "x.multihop.assemble")
     assert assemble["args"]["pairs"] == want.ids.shape[0]
     for f in ("seeds", "offsets", "ids", "counts"):
         a, b = getattr(got, f), getattr(want, f)
         assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_frontier_expand_span_tags_reduced_hubs(events):
+    """The wrapper's span carries `reduced_hubs`, the plan's count of hubs
+    of more than one chunk (those the kernel's second pass sums), kept on
+    the plan as a host int; the catalog describes the tag."""
+    from repro_torch.kernels.frontier_expand import (build_frontier_plan,
+                                                     frontier_expand_counts,
+                                                     ops, plan_to_device)
+    rng = np.random.default_rng(4)
+    n, c = 5000, ops.CHUNK_EDGES
+    hubs = {7: 3 * c, 8: c + 1, 9: c, 10: ops.LIGHT_EDGES + 1}
+    dst = rng.integers(0, n, 6000)
+    dst = np.where(np.isin(dst, list(hubs)), dst + 10, dst)
+    src = np.concatenate([rng.integers(0, n, 6000)]
+                         + [rng.choice(n, m, replace=False)
+                            for m in hubs.values()])
+    dst = np.concatenate([dst] + [np.full(m, d) for d, m in hubs.items()])
+    plan = plan_to_device(build_frontier_plan(src, dst, n, n), "cpu")
+    assert plan.reduced_hubs == 2 and plan.reduce_dst.tolist() == [7, 8]
+    events()
+    frontier_expand_counts(plan, torch.ones((n, 3)))
+    ev, = events()
+    assert ev["name"] == "x.frontier_expand.counts"
+    assert ev["args"]["B"] == 3 and ev["args"]["reduced_hubs"] == 2
+    assert isinstance(ev["args"]["reduced_hubs"], int)
+    kind, doc = telemetry.CATALOG["x.frontier_expand.counts"]
+    assert kind == "span" and "reduced_hubs" in doc
 
 
 @pytest.mark.parametrize("mode", ["psw_windows", "dense_gather"])
