@@ -45,9 +45,9 @@ steps of launch/steps.py, runs last:
      (`bfs_perhop`, `friends_of_friends_perhop`);
   1. bulk store: a LiveJournal-like power-law graph (SNAP soc-LiveJournal1:
      4,847,571 vertices, 68,993,773 edges; cut to 4M vertices and 56M edges,
-     about 14 per vertex as there) in a `GraphPAL`, its dense plan resident
-     on the GPU (the kernel's compact layout built on the card, timed on its
-     own); `two_hop_counts(dense="kernel")` on 256 seeds,
+     about 14 per vertex as there) in a `GraphPAL`, its dense plan built and
+     resident on the GPU (its seconds and bytes logged);
+     `two_hop_counts(dense="kernel")` on 256 seeds,
      `khop(dense="kernel", k=3)` from 64 seeds, and `query.bfs` from one
      seed with the `dense="auto"` heuristic, each bitwise against the sparse
      host path;
@@ -57,9 +57,8 @@ steps of launch/steps.py, runs last:
   3. the frontier_expand kernel against its plain torch version at the main
      path's shapes (B = 1: the largest BFS level; B = 64 and 128: two_hop's
      hop-2 panels of 64 and 128 seeds; B = 128: a dense 30% 0/1 panel with
-     no zero row to skip): bitwise equal, with times, the compact-layout and
-     ELL bounds, the panel's non-zero rows and a `torch.sparse.mm`
-     yardstick;
+     no zero row to skip): bitwise equal, with times, the bytes and gather
+     bounds, the panel's non-zero rows and a `torch.sparse.mm` yardstick;
   4. PSW analytics on the bulk store: `build_device_graph` (host build and
      upload timed apart), `pagerank_device` for 5 iterations in
      `dense_gather` and `psw_windows` (bitwise equal, and bitwise equal
@@ -392,21 +391,14 @@ def phase_bulk(torch, core, fe_ops, dev, args, clock):
     g = clock("GraphPAL.from_edges", core.GraphPAL.from_edges, src, dst,
               n_partitions=16, max_id=args.vertices - 1)
     del src, dst
-    plan = clock("dense_plan (host build + upload + layout)", core.dense_plan,
-                 g, "out", device=dev)
-    lay = clock("kernel_layout on the card (inside plan_to_device)",
-                fe_ops.kernel_layout, plan.idx, plan.mask, plan.row_dst,
-                plan.n_dst)
-    check(all(torch.equal(v, getattr(plan, k)) if torch.is_tensor(v)
-              else v == getattr(plan, k) for k, v in lay.items()),
-          "kernel_layout differs from the resident plan's")
-    del lay
+    plan = clock("dense_plan (edge keys on the host, the plan on the card)",
+                 core.dense_plan, g, "out", device=dev)
     counts = plan.edge_ptr[1:] - plan.edge_ptr[:-1]
     heavy = counts > plan.light_edges
-    rows = int((plan.row_dst < plan.n_dst).sum())
-    log(f"  plan: {plan.n_edges} distinct edges, {rows} virtual rows "
-        f"(K={plan.k_slots}), {plan.idx.shape[0]} padded; compact layout "
-        f"{plan.col.shape[0]} edges; {int(heavy.sum())} heavy "
+    nbytes = sum(t.numel() * t.element_size() for t in vars(plan).values()
+                 if torch.is_tensor(t))
+    log(f"  plan: {plan.n_edges} distinct edges, {nbytes} bytes on the "
+        f"card; {int(heavy.sum())} heavy "
         f"destinations (> {plan.light_edges} edges, "
         f"{int(counts[heavy].sum())} edges) in "
         f"{plan.chunks.shape[0]} chunks of <= {plan.chunk_edges}, "
@@ -535,8 +527,8 @@ def graph_ms(torch, fn, reps: int) -> float:
 
 def kernel_vs_plain(torch, fe, kernel, plan, x, reps: int) -> dict:
     """Kernel against the plain version on one panel: bitwise check (NaN
-    nowhere: the panels are 0/1), times, both bounds and the
-    torch.sparse.mm yardstick on the plan's own CSR."""
+    nowhere: the panels are 0/1), times, the bytes and gather bounds and
+    the torch.sparse.mm yardstick on the plan's own CSR."""
     B = int(x.shape[1])
     out = torch.empty((plan.n_dst, B), dtype=torch.float32, device=x.device)
     scratch = torch.empty((plan.scratch_rows, B), dtype=torch.float32,
@@ -544,8 +536,7 @@ def kernel_vs_plain(torch, fe, kernel, plan, x, reps: int) -> dict:
     flags = torch.empty((plan.n_src, -(-B // kernel.TILE) if B >= 32 else 0),
                         dtype=torch.uint8, device=x.device)
     kernel.launch(plan, x, out, scratch, flags)
-    plain = fe.frontier_expand_torch(plan.idx, plan.mask, x, plan.row_dst,
-                                     plan.n_dst)
+    plain = fe.frontier_expand_torch(plan.col, plan.edge_ptr, x, plan.n_dst)
     torch.cuda.synchronize()
     err = float((out - plain).abs().max())
     check(torch.equal(out, plain),
@@ -554,7 +545,7 @@ def kernel_vs_plain(torch, fe, kernel, plan, x, reps: int) -> dict:
     ms = cuda_ms(torch, lambda: kernel.launch(plan, x, out, scratch, flags),
                  reps)
     plain_ms = cuda_ms(torch, lambda: fe.frontier_expand_torch(
-        plan.idx, plan.mask, x, plan.row_dst, plan.n_dst), max(1, reps // 4))
+        plan.col, plan.edge_ptr, x, plan.n_dst), max(1, reps // 4))
 
     # yardstick: the same product as one cuSPARSE SpMM of the CSR adjacency
     # (the kernel's compact layout: col and edge_ptr)
@@ -571,16 +562,13 @@ def kernel_vs_plain(torch, fe, kernel, plan, x, reps: int) -> dict:
     library_ms = cuda_ms(torch, lambda: torch.sparse.mm(adj, x), reps)
     del adj, col
 
-    R, K = int((plan.row_dst < plan.n_dst).sum()), plan.k_slots
     E, M, N = plan.n_edges, plan.n_src, plan.n_dst
     nz = (x != 0).any(1)
     nz_rows = int(nz.sum())
     gathered = int(nz[plan.col.long()].sum())   # edges whose x row is read
     xo = M * B * 4 + N * B * 4                   # x read once, out written
-    # each input read once, each output written once: the compact layout
+    # each input read once, each output written once
     bytes_once = E * 4 + (N + 1) * 8 + xo
-    # the same, counting the ELL plan (idx, mask) instead of the compact one
-    ell_bytes = R * K * 5 + (N + 1) * 8 + xo
     ops = E * B                       # one fp32 add per gathered element
     # what gathering every edge's x row moves (a 32-byte sector at least)
     gather_bytes = E * 4 + (N + 1) * 8 + E * max(B * 4, 32) + N * B * 4
@@ -588,10 +576,8 @@ def kernel_vs_plain(torch, fe, kernel, plan, x, reps: int) -> dict:
            "library_ms": library_ms, "nonzero_rows": nz_rows,
            "gathered_rows": gathered,
            **bound(bytes_once, ops, FP32_OPS_PER_S),
-           "ell_bound_ms": max(ell_bytes / HBM_BYTES_PER_S,
-                               ops / FP32_OPS_PER_S) * 1e3,
            "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
-           "gather_bytes": gather_bytes, "rows": R, "edges": E}
+           "gather_bytes": gather_bytes, "edges": E}
     return res
 
 
@@ -1566,8 +1552,8 @@ def phase_disk(torch, core, fe_ops, ps, dev, args, clock) -> dict:
     # e. dense queries on the card over the reopened store
     seeds = np.random.default_rng(args.seed + 20).choice(max_id, 256,
                                                          replace=False)
-    clock("9e dense_plan of the store (host build from the memmaps + upload "
-          "+ layout)", core.dense_plan, db, "out", device=dev)
+    clock("9e dense_plan of the store (edge keys from the memmaps, the plan "
+          "on the card)", core.dense_plan, db, "out", device=dev)
     fe_ops.launches = 0                        # the disk path's hops...
     dense = clock("9e two_hop_counts dense (256 seeds)", core.two_hop_counts,
                   db, seeds, dense="kernel", device=dev)
@@ -1715,31 +1701,27 @@ def percentiles(ms) -> dict:
 
 
 class PlanBuilds:
-    """Counts and times the dense plan's builds from any thread: the host
-    ELL (`build_frontier_plan`) and its upload and layout on the card
-    (`plan_to_device`), wrapped where `multihop.dense_plan` imports them
-    at call time. `restore()` puts the originals back."""
+    """Counts and times the dense plan's builds from any thread
+    (`build_frontier_plan`, on the card), wrapped where
+    `multihop.dense_plan` imports it at call time. `restore()` puts the
+    original back."""
 
     def __init__(self, fe):
         self.fe, self.lock = fe, threading.Lock()
-        self.orig = (fe.build_frontier_plan, fe.plan_to_device)
-        self.builds, self.build_s, self.upload_s = 0, 0.0, 0.0
-        fe.build_frontier_plan = self._timed(self.orig[0], "build_s")
-        fe.plan_to_device = self._timed(self.orig[1], "upload_s")
+        self.orig = fe.build_frontier_plan
+        self.builds, self.build_s = 0, 0.0
+        fe.build_frontier_plan = self._timed
 
-    def _timed(self, fn, field):
-        def run(*a, **kw):
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            with self.lock:
-                setattr(self, field, getattr(self, field)
-                        + time.perf_counter() - t0)
-                self.builds += field == "build_s"
-            return out
-        return run
+    def _timed(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = self.orig(*a, **kw)
+        with self.lock:
+            self.build_s += time.perf_counter() - t0
+            self.builds += 1
+        return out
 
     def restore(self) -> None:
-        self.fe.build_frontier_plan, self.fe.plan_to_device = self.orig
+        self.fe.build_frontier_plan = self.orig
 
 
 def timed(torch, dev, fn, *a, **kw):
@@ -1983,14 +1965,13 @@ def phase_service(torch, core, fe, fe_ops, ps, dev, args, clock) -> dict:
     res["reads"] = reads
     res["plan_builds_10b"] = plans.builds
     res["plan_build_s_10b"] = plans.build_s
-    res["plan_upload_s_10b"] = plans.upload_s
     for r in reads["rounds"]:
         log("  10b " + json.dumps(r))
     log(f"  10b: writer {reads['writer_edges_per_s']:.0f} edges/s, "
         f"{reads['flushes_during']} flushes; publications served dense "
         f"{reads['publications_served_dense']}; {plans.builds} plan builds "
-        f"({plans.build_s:.3f} s host, {plans.upload_s:.3f} s upload + "
-        f"layout); {fe_ops.launches} frontier_expand launches so far")
+        f"({plans.build_s:.3f} s); {fe_ops.launches} frontier_expand "
+        f"launches so far")
 
     # c. the front desk
     fd = core.FrontDesk(svc, queue_cap=1024, max_batch=256)

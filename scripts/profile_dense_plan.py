@@ -5,8 +5,9 @@ power-law store of chip_smoke.py phase 1's shape, with cProfile.
       [--vertices 4000000] [--edges 56000000] [--device cuda]
 
 Prints the generation and `GraphPAL.from_edges` seconds, the plan's build
-seconds (host numpy, upload, the layout on --device) and the profile's
-top entries by cumulative and by own time. The defaults are phase 1's
+seconds (the edge keys' sort on the host, then the plan's dedup, sort and
+CSR on --device) and the profile's top entries by cumulative and by own
+time. The defaults are phase 1's
 full size (~10 GB of host memory); `--vertices 1000000 --edges 14000000
 --device cpu` is a quarter of it."""
 import argparse

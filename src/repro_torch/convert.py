@@ -9,9 +9,10 @@ Keys: `intervals.{n_partitions,interval_len}`;
 `partitions.{i}.{interval,src,dst,etype,src_vertices,src_ptr,dst_perm,
 dst_vertices,dst_ptr}` plus optional `partitions.{i}.dead` and
 `partitions.{i}.columns.{name}`; `vertex_columns.{name}.{i}`. A plan's keys
-are the reference's field names; the port's kernel layout (`col`,
-`edge_ptr` and the heavy-destination chunks) is built from `idx`, `mask`
-and `row_dst` on the target device.
+are the reference's field names, those of its virtual-row ELL (`idx`,
+`mask`, `row_dst`, `k_slots`, ...); `plan_from_arrays` compacts the ELL's
+live slots row by row into the port's destination CSR (`col`, `edge_ptr`)
+and cuts the heavy destinations into chunks on the target device.
 
 A PSW `DeviceGraph` travels the same way (`device_graph_to_arrays` /
 `device_graph_from_arrays`): the reference's field names as keys, its jnp
@@ -45,7 +46,7 @@ from torch.utils import _pytree as pytree
 
 from .core.pal import EdgePartition, GraphPAL, IntervalMap
 from .core.psw import DeviceGraph, segment_ptr
-from .kernels.frontier_expand.ops import FrontierPlan, plan_to_device
+from .kernels.frontier_expand.ops import FrontierPlan, hub_chunks
 from .models import bert4rec
 from .models.gnn import equiformer_v2, gin, meshgraphnet, pna
 from .models.transformer import TransformerConfig, _layer_shapes
@@ -111,7 +112,7 @@ def pal_from_arrays(d: Dict[str, np.ndarray]) -> GraphPAL:
 
 
 def plan_to_arrays(plan) -> Dict[str, np.ndarray]:
-    """Flatten a FrontierPlan (either package's, numpy arrays) into a dict."""
+    """Flatten a reference FrontierPlan into a dict."""
     return {name: np.asarray(getattr(plan, name))
             for name in _PLAN_INTS + _PLAN_ARRAYS}
 
@@ -131,9 +132,13 @@ def plan_from_arrays(d: Dict[str, np.ndarray], device) -> FrontierPlan:
             or (np.diff(row_dst) < 0).any()):
         raise ValueError("plan arrays are inconsistent: idx/mask/row_dst "
                          "shapes, source ids or destination order")
-    plan = FrontierPlan(idx, mask, row_dst, n_src, n_dst, int(d["n_edges"]),
-                        int(d["k_slots"]))
-    return plan_to_device(plan, device)
+    row_end = np.zeros(idx.shape[0] + 1, np.int64)
+    np.cumsum(mask.sum(1), out=row_end[1:])
+    edge_ptr = torch.from_numpy(
+        row_end[np.searchsorted(row_dst, np.arange(n_dst + 1))]).to(device)
+    return FrontierPlan(torch.from_numpy(live).to(device), edge_ptr,
+                        n_src=n_src, n_dst=n_dst, n_edges=int(d["n_edges"]),
+                        **hub_chunks(edge_ptr))
 
 
 def device_graph_to_arrays(dg) -> Dict[str, np.ndarray]:

@@ -23,9 +23,9 @@ Everything between engine calls is columnar numpy on packed int64 keys
 compaction are sort/unique/searchsorted, never a Python loop over vertices.
 
 Dense frontiers additionally get a device path: a `FrontierPlan`
-(kernels/frontier_expand) lays the store's deduplicated edge set out as
-virtual-row ELL tiles and a CUDA kernel expands indicator columns on the
-GPU; `khop(dense="auto")` picks sparse probes, a bottom-up edge
+(kernels/frontier_expand) lays the store's deduplicated edge set out as a
+destination CSR on the GPU and a CUDA kernel expands indicator columns
+there; `khop(dense="auto")` picks sparse probes, a bottom-up edge
 stream, or the kernel by frontier density (§10.3). Packed edge-key sets,
 and the plans of stores that are not live, are memoized on the engine's
 `plan_cache()` keyed by `cache_token()`, so a mutated store can never serve
@@ -220,7 +220,7 @@ def _expand_stream(eng: StorageEngine, frontier: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# Dense path: virtual-row ELL plan + CUDA frontier-expansion kernel
+# Dense path: destination CSR plan + CUDA frontier-expansion kernel
 # ---------------------------------------------------------------------------
 _PLAN_KEY = "multihop:dense_plan"
 _EDGE_KEYS = "multihop:edge_keys"
@@ -248,9 +248,22 @@ def _edge_keys_internal(eng: StorageEngine) -> np.ndarray:
                  for c in eng.edge_chunks()]
         if not parts:
             return np.empty(0, np.int64)
-        from ..kernels.frontier_expand.ops import unique_sorted
-        return unique_sorted(np.concatenate(parts))
+        return _unique_sorted(np.concatenate(parts))
     return _memoized(eng, _EDGE_KEYS, build)
+
+
+def _unique_sorted(a) -> np.ndarray:
+    """`np.unique` of a 1-D array (its sorted distinct values) by a sort and
+    a neighbour compare. numpy 2.3 and later take integers through a hash
+    table instead: 93 s for 56M int64 keys on an H100 host's CPU, where the
+    sort takes 8 s."""
+    a = np.sort(np.asarray(a).ravel())
+    if a.size > 1:
+        keep = np.empty(a.size, bool)
+        keep[0] = True
+        np.not_equal(a[1:], a[:-1], out=keep[1:])
+        a = a[keep]
+    return a
 
 
 def _resolve_device(device, what: str = "the dense frontier path"
@@ -278,9 +291,9 @@ def _device_key(device) -> str:
 
 def dense_plan(g: GraphLike, direction: str = "out", device=None):
     """Build (or fetch the memoized) frontier-expansion plan: the store's
-    deduplicated edge set as destination-grouped virtual-row ELL tiles
-    (kernels/frontier_expand), resident on `device`. `direction="in"`
-    builds the transposed plan.
+    deduplicated edge set as a destination CSR (kernels/frontier_expand),
+    built and resident on `device`. `direction="in"` builds the transposed
+    plan.
 
     On a read view of a live store (`LSMTree.read_view()`, and so of a
     `GraphDB` or `ServiceDB`) this is the store's base plan, kept across
@@ -293,14 +306,12 @@ def dense_plan(g: GraphLike, direction: str = "out", device=None):
 
 
 def _build_plan(keys: np.ndarray, M: int, direction: str, dev):
-    from ..kernels.frontier_expand import build_frontier_plan, plan_to_device
-    s = keys // M
-    d = keys % M
+    from ..kernels.frontier_expand import build_frontier_plan
+    k = torch.from_numpy(keys)
+    s, d = k // M, k % M
     if direction == "out":
-        plan = build_frontier_plan(s, d, n_src=M, n_dst=M)
-    else:
-        plan = build_frontier_plan(d, s, n_src=M, n_dst=M)
-    return plan_to_device(plan, dev)
+        return build_frontier_plan(s, d, M, M, dev)
+    return build_frontier_plan(d, s, M, M, dev)
 
 
 def _dense_inputs(eng: StorageEngine, direction: str, dev: torch.device):
@@ -409,7 +420,7 @@ class _LivePlan:
         return tuple(t[:L] for t in self.dev)
 
     def _upload(self) -> None:
-        dev, M = self.plan.idx.device, self.plan.n_src
+        dev, M = self.plan.device, self.plan.n_src
         key = torch.from_numpy(self.ent_key[self.n_dev:self.n]).to(dev)
         sign = torch.from_numpy(self.ent_sign[self.n_dev:self.n]).to(dev)
         cols = (key // M, key % M) if self.out else (key % M, key // M)
@@ -507,7 +518,7 @@ def _expand_dense(eng: StorageEngine, frontier: np.ndarray,
     destinations."""
     from ..kernels.frontier_expand import frontier_expand_counts
     plan, delta = _dense_inputs(eng, direction, _resolve_device(device))
-    dev = plan.idx.device
+    dev = plan.device
     iv = eng.intervals
     fi = torch.from_numpy(np.asarray(iv.to_internal(frontier), np.int64))
     x = torch.zeros((eng.n_internal_vertices, 1), dtype=torch.float32,
@@ -721,7 +732,7 @@ def _two_hop_dense(eng: StorageEngine, seeds: np.ndarray, direction: str,
     `pairs`, the answer's length)."""
     from ..kernels.frontier_expand import frontier_expand_counts
     plan, delta = _dense_inputs(eng, direction, _resolve_device(device))
-    dev = plan.idx.device
+    dev = plan.device
     iv = eng.intervals
     M = eng.n_internal_vertices
     S = seeds.shape[0]

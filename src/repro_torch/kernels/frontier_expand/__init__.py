@@ -1,4 +1,4 @@
-"""Frontier expansion over a virtual-row ELL plan: a hand-written CUDA kernel
+"""Frontier expansion over a destination CSR plan: a hand-written CUDA kernel
 for Hopper (csrc/frontier_expand.cu), its plain torch version (ref.py) and
 the plan builder and wrapper (ops.py). The launch count is `ops.launches`."""
 from . import ops
@@ -6,7 +6,6 @@ from .ops import (
     FrontierPlan,
     build_frontier_plan,
     frontier_expand_counts,
-    plan_to_device,
 )
 from .ref import frontier_expand_torch
 
@@ -16,5 +15,4 @@ __all__ = [
     "frontier_expand_counts",
     "frontier_expand_torch",
     "ops",
-    "plan_to_device",
 ]

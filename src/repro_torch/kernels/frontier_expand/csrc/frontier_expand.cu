@@ -2,16 +2,16 @@
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/frontier_expand/frontier_expand.py::frontier_expand_pallas
-// together with its wrapper's sorted segment_sum over `row_dst`
+// together with its wrapper's sorted segment_sum per destination
 // (src/repro/kernels/frontier_expand/ops.py::frontier_expand_counts):
 //
 //   out[d, j] = sum over the plan's edges (s, d):  x[s, j]
 //
-// The plan's virtual-row ELL (`idx`, `mask`, `row_dst`) stays the
-// reference's and feeds the plain version; this kernel reads the compact
-// layout `plan_to_device` builds from it on the card (ops.py):
-//   col (E,) int32       the live slots' sources, row-major, so each
-//                        destination's edges are contiguous and in slot order;
+// The plan (ops.py::build_frontier_plan, built with torch on the card from
+// the deduplicated packed edge keys) is the layout this kernel and the
+// plain version (ref.py) read:
+//   col (E,) int32       each edge's source, so each destination's edges
+//                        are contiguous and in ascending source order;
 //   edge_ptr (n_dst + 1) edges of d are col[edge_ptr[d]:edge_ptr[d + 1]];
 //   chunks (C, 2)        [edge begin, edge end) pieces of at most
 //                        `chunk_edges` edges of each heavy destination (one

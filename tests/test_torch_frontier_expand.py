@@ -1,6 +1,7 @@
 """The port's frontier_expand plan and wrapper (repro_torch/kernels/
-frontier_expand) against the reference's, on the CPU: plan arrays equal
-array for array, and counts bitwise equal to the reference jnp path
+frontier_expand) against the reference's, on the CPU: the plan's CSR equal
+to the reference ELL's live slots compacted row by row, and counts bitwise
+equal to the reference jnp path
 (`use_kernel=False`; the Pallas interpret path no longer traces under
 jax 0.9), the numpy oracle and a dense A @ x. Exact tolerance: the inputs
 are small integers, so every sum is exact in float32."""
@@ -15,13 +16,8 @@ from repro.kernels.frontier_expand import frontier_expand_counts as ref_counts
 from repro.kernels.frontier_expand import frontier_expand_np
 from repro_torch import convert
 from repro_torch.kernels.frontier_expand import (build_frontier_plan,
-                                                 frontier_expand_counts,
-                                                 frontier_expand_torch,
-                                                 plan_to_device)
+                                                 frontier_expand_counts)
 from repro_torch.kernels.frontier_expand import ops
-
-REF_FIELDS = ("idx", "mask", "row_dst", "n_src", "n_dst", "n_edges",
-              "k_slots")
 
 
 def graph(kind: str, seed: int = 0):
@@ -51,13 +47,13 @@ def panel(n: int, b: int, seed: int) -> np.ndarray:
 @pytest.mark.parametrize("kind", ["random", "hub", "empty"])
 @pytest.mark.parametrize("k_slots", [32, 7])
 def test_plan_arrays_match_reference(kind, k_slots):
+    """The CSR is the reference ELL's live slots, whatever its row width."""
     src, dst, n = graph(kind)
     ref = ref_build(src, dst, n, n, k_slots=k_slots)
-    got = build_frontier_plan(src, dst, n, n, k_slots=k_slots)
-    for name in REF_FIELDS:
-        a, b = getattr(ref, name), getattr(got, name)
-        assert np.array_equal(np.asarray(a), np.asarray(b)), name
-        assert np.asarray(a).dtype == np.asarray(b).dtype, name
+    got = build_frontier_plan(src, dst, n, n, "cpu")
+    check_compact_layout(got, ref)
+    assert (got.n_src, got.n_dst, got.n_edges) == (ref.n_src, ref.n_dst,
+                                                   ref.n_edges)
 
 
 @pytest.mark.parametrize("kind", ["random", "hub", "empty"])
@@ -66,7 +62,7 @@ def test_counts_bitwise_equal_reference(kind, b):
     src, dst, n = graph(kind, seed=b)
     x = panel(n, b, seed=b + 1)
     ref_plan = ref_build(src, dst, n, n)
-    plan = plan_to_device(build_frontier_plan(src, dst, n, n), "cpu")
+    plan = build_frontier_plan(src, dst, n, n, "cpu")
     got = frontier_expand_counts(plan, torch.from_numpy(x))
     assert got.dtype == torch.float32 and tuple(got.shape) == (n, b)
     got = got.numpy()
@@ -125,7 +121,7 @@ def emulate_kernel(plan, x: torch.Tensor) -> torch.Tensor:
 
 
 def check_compact_layout(plan, ref) -> None:
-    """The kernel layout against the reference plan's idx/mask/row_dst:
+    """The plan against the reference plan's idx/mask/row_dst:
     every destination's edges in slot order; hub chunks that cover each
     heavy destination's edges once, in order, at most chunk_edges each;
     a hub of one chunk whose chunk targets its destination, and hubs of
@@ -172,7 +168,7 @@ def check_compact_layout(plan, ref) -> None:
 def test_kernel_layout_covers_every_row(kind):
     src, dst, n = graph(kind)
     ref = ref_build(src, dst, n, n)
-    plan = plan_to_device(build_frontier_plan(src, dst, n, n), "cpu")
+    plan = build_frontier_plan(src, dst, n, n, "cpu")
     check_compact_layout(plan, ref)
     if kind == "hub":
         assert 17 in plan.reduce_dst.tolist()  # the 5000-source hub is split
@@ -187,22 +183,18 @@ def test_kernel_layout_covers_every_row(kind):
 @pytest.mark.parametrize("k_slots", [32, 7])
 @pytest.mark.parametrize("split", [None, (3, 5)])
 def test_compact_layout_matches_reference(kind, k_slots, split):
-    """Built by plan_to_device and by convert.plan_from_arrays, at the
-    default split and at a small one (more heavy destinations and
-    chunks)."""
+    """Built by build_frontier_plan and by convert.plan_from_arrays from
+    the reference's ELL, at the default split and at a small one (more
+    heavy destinations and chunks)."""
     src, dst, n = graph(kind, seed=k_slots)
     ref = ref_build(src, dst, n, n, k_slots=k_slots)
-    for plan in (plan_to_device(build_frontier_plan(src, dst, n, n,
-                                                    k_slots=k_slots), "cpu"),
+    for plan in (build_frontier_plan(src, dst, n, n, "cpu"),
                  convert.plan_from_arrays(convert.plan_to_arrays(ref),
                                           "cpu")):
         if split:
-            plan = dataclasses.replace(plan, **ops.kernel_layout(
-                plan.idx, plan.mask, plan.row_dst, plan.n_dst, *split))
+            plan = dataclasses.replace(
+                plan, **ops.hub_chunks(plan.edge_ptr, *split))
         check_compact_layout(plan, ref)
-        for name in REF_FIELDS[:3]:
-            assert np.array_equal(getattr(plan, name).numpy(),
-                                  np.asarray(getattr(ref, name)))
 
 
 def walk_panel(n: int, b: int, kind: str, seed: int) -> torch.Tensor:
@@ -230,9 +222,8 @@ def test_emulated_walk_matches_counts(kind, b):
     rows) bitwise against frontier_expand_counts, NaN where it has NaN."""
     src, dst, n = graph("hub", seed=b)
     src, dst = src[::4], dst[::4]           # 1,750 edges, hub of 1,250
-    plan = plan_to_device(build_frontier_plan(src, dst, n, n), "cpu")
-    plan = dataclasses.replace(plan, **ops.kernel_layout(
-        plan.idx, plan.mask, plan.row_dst, n, 2, 64))
+    plan = build_frontier_plan(src, dst, n, n, "cpu")
+    plan = dataclasses.replace(plan, **ops.hub_chunks(plan.edge_ptr, 2, 64))
     assert plan.chunks.shape[0] >= 20
     x = walk_panel(n, b, kind, seed=b + 2)
     got = emulate_kernel(plan, x)
@@ -247,7 +238,7 @@ def test_emulated_walk_matches_counts(kind, b):
 @pytest.mark.parametrize("b", [1, 130])
 def test_kernel_work_split_matches_plain(kind, b):
     src, dst, n = graph(kind, seed=3)
-    plan = plan_to_device(build_frontier_plan(src, dst, n, n), "cpu")
+    plan = build_frontier_plan(src, dst, n, n, "cpu")
     x = torch.from_numpy(panel(n, b, seed=4))
     assert torch.equal(emulate_kernel(plan, x),
                        frontier_expand_counts(plan, x))
@@ -273,7 +264,7 @@ def test_hubs_at_the_split(extra, b):
                             for m in hubs.values()])
     dst = np.concatenate([dst] + [np.full(m, d) for d, m in hubs.items()])
     ref = ref_build(src, dst, n, n)
-    plan = plan_to_device(build_frontier_plan(src, dst, n, n), "cpu")
+    plan = build_frontier_plan(src, dst, n, n, "cpu")
     check_compact_layout(plan, ref)
     for d, m in hubs.items():
         assert int(plan.edge_ptr[d + 1] - plan.edge_ptr[d]) == m
@@ -292,7 +283,7 @@ def test_plan_from_reference_arrays():
     src, dst, n = graph("hub", seed=5)
     ref = ref_build(src, dst, n, n)
     plan = convert.plan_from_arrays(convert.plan_to_arrays(ref), "cpu")
-    own = plan_to_device(build_frontier_plan(src, dst, n, n), "cpu")
+    own = build_frontier_plan(src, dst, n, n, "cpu")
     for name in ("col", "edge_ptr", "chunks", "chunk_row", "reduce_dst",
                  "reduce_ptr"):
         assert torch.equal(getattr(plan, name), getattr(own, name))
@@ -317,13 +308,10 @@ def test_plan_from_reference_arrays():
 
 def test_cpu_path_counts_no_launch_and_checks_inputs():
     src, dst, n = graph("random")
-    host = build_frontier_plan(src, dst, n, n)
-    plan = plan_to_device(host, "cpu")
+    plan = build_frontier_plan(src, dst, n, n, "cpu")
     before = ops.launches
     frontier_expand_counts(plan, torch.ones((n, 2)))
     assert ops.launches == before          # the plain version is no launch
-    with pytest.raises(TypeError):
-        frontier_expand_counts(host, torch.ones((n, 2)))
     with pytest.raises(TypeError):
         frontier_expand_counts(plan, np.ones((n, 2), np.float32))
     with pytest.raises(ValueError):
@@ -369,15 +357,3 @@ def test_launch_counts_are_exact_from_threads(kernel, monkeypatch):
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert mod.launches == 40_000
-
-
-@pytest.mark.parametrize("n,hi", [(0, 5), (1, 5), (2000, 7), (50_000, 2**40),
-                                  (50_000, 100)])
-def test_unique_sorted_is_np_unique(n, hi):
-    """The plan's dedup (a sort and a neighbour compare) gives what
-    np.unique gives: the sorted distinct values, negatives included."""
-    rng = np.random.default_rng(n + hi)
-    a = rng.integers(-hi, hi, n, dtype=np.int64)
-    got = ops.unique_sorted(a)
-    want = np.unique(a)
-    assert got.dtype == want.dtype and np.array_equal(got, want)

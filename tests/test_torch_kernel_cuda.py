@@ -20,6 +20,8 @@ columns are compared as a mask, since NaN != NaN). A small reopened on-disk
 `GraphDB`'s dense hops and snapshot on the card, and a 256-seed dense
 two-hop answer assembled on the card, are bitwise equal to `device="cpu"`. A MoE smoke-width prefill (through the flash_attention
 kernel) and bert4rec's scores on the card are within 1e-4 of the CPU's."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -32,8 +34,7 @@ from repro_torch.kernels import psw_spmm as ps
 from repro_torch.kernels import segment_ell as se
 from repro_torch.kernels.frontier_expand import (build_frontier_plan,
                                                  frontier_expand_counts,
-                                                 frontier_expand_torch,
-                                                 ops, plan_to_device)
+                                                 frontier_expand_torch, ops)
 from repro_torch.kernels.embedding_bag import kernel as eb_kernel
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.psw_spmm import kernel as ps_kernel
@@ -48,33 +49,47 @@ def cuda():
     return torch.device("cuda")
 
 
-def plan_and_panel(n, e, b, hub, k_slots, seed):
+def plans_and_panel(n, e, b, hub, seed, device):
+    """The plan of a random multigraph (a hub at destination 3) on `device`
+    and on the CPU, and a small-integer panel."""
     rng = np.random.default_rng(seed)
     src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
     if hub:
         src = np.concatenate([src, rng.integers(0, n, hub)])
         dst = np.concatenate([dst, np.full(hub, 3)])
-    plan = build_frontier_plan(src, dst, n, n, k_slots=k_slots)
     x = (rng.random((n, b)) < 0.3).astype(np.float32)
     x[rng.random((n, b)) < 0.02] = 3.0
-    return plan, torch.from_numpy(x)
+    return (build_frontier_plan(src, dst, n, n, device),
+            build_frontier_plan(src, dst, n, n, "cpu"), torch.from_numpy(x))
+
+
+def same_plan(a, b) -> None:
+    """Every field equal, tensors bitwise (on any devices)."""
+    for f in dataclasses.fields(a):
+        u, v = getattr(a, f.name), getattr(b, f.name)
+        if torch.is_tensor(u):
+            assert u.dtype == v.dtype and torch.equal(u.cpu(), v.cpu()), f.name
+        else:
+            assert u == v, f.name
 
 
 @pytest.mark.parametrize("b", [1, 5, 31, 32, 64, 128, 130])
-@pytest.mark.parametrize("hub,k_slots", [(0, 32), (20000, 32), (5000, 7),
-                                         (5000, 40)])
-def test_kernel_bitwise_equals_plain(cuda, b, hub, k_slots):
-    plan, x = plan_and_panel(3000, 30000, b, hub, k_slots, seed=b + hub)
-    dplan = plan_to_device(plan, cuda)
+@pytest.mark.parametrize("hub,graph_seed", [(0, 32), (20000, 32), (5000, 7),
+                                            (5000, 40)])
+def test_kernel_bitwise_equals_plain(cuda, b, hub, graph_seed):
+    """The plan built on the card is the CPU's, and the kernel's counts on
+    it are bitwise the plain version's on either device."""
+    dplan, plan, x = plans_and_panel(3000, 30000, b, hub,
+                                     (b + hub, graph_seed), cuda)
+    same_plan(dplan, plan)
     before = ops.launches
     got = frontier_expand_counts(dplan, x.to(cuda))
     torch.cuda.synchronize()
     assert ops.launches == before + 1
-    want = frontier_expand_torch(dplan.idx, dplan.mask, x.to(cuda),
-                                 dplan.row_dst, dplan.n_dst)
+    want = frontier_expand_torch(dplan.col, dplan.edge_ptr, x.to(cuda),
+                                 dplan.n_dst)
     assert torch.equal(got, want)
-    cpu = frontier_expand_counts(plan_to_device(plan, "cpu"), x)
-    assert torch.equal(got.cpu(), cpu)
+    assert torch.equal(got.cpu(), frontier_expand_counts(plan, x))
 
 
 def sparse_panel(n, b, kind, seed):
@@ -103,12 +118,11 @@ def test_frontier_sparse_and_non_finite_panels(cuda, b, kind):
     """Rows of only +-0 are skipped on the wide path and change no bit: the
     kernel equals the plain version (NaN where it has NaN), and a
     destination of -0.0 rows only sums to +0.0 in both."""
-    plan, _ = plan_and_panel(3000, 30000, 1, 8000, 32, seed=b)
+    dplan, _, _ = plans_and_panel(3000, 30000, 1, 8000, b, cuda)
     x = sparse_panel(3000, b, kind, seed=b + 1)
-    dplan = plan_to_device(plan, cuda)
     got = frontier_expand_counts(dplan, x.to(cuda))
-    want = frontier_expand_torch(dplan.idx, dplan.mask, x.to(cuda),
-                                 dplan.row_dst, dplan.n_dst)
+    want = frontier_expand_torch(dplan.col, dplan.edge_ptr, x.to(cuda),
+                                 dplan.n_dst)
     torch.cuda.synchronize()
     assert torch.equal(got.isnan(), want.isnan())
     fin = ~got.isnan()
@@ -127,14 +141,14 @@ def test_frontier_hub_above_the_edge_split(cuda, b):
     src = np.concatenate([rng.integers(0, n, 60000),
                           rng.choice(n, 12000, replace=False)])
     dst = np.concatenate([rng.integers(0, n, 60000), np.full(12000, 11)])
-    plan = plan_to_device(build_frontier_plan(src, dst, n, n), cuda)
+    plan = build_frontier_plan(src, dst, n, n, cuda)
     assert 11 in plan.reduce_dst.tolist()
     h = plan.reduce_dst.tolist().index(11)
     assert int(plan.reduce_ptr[h + 1] - plan.reduce_ptr[h]) >= \
         12000 // plan.chunk_edges
     x = (torch.rand((n, b), device=cuda) < 0.5).to(torch.float32)
     got = frontier_expand_counts(plan, x)
-    want = frontier_expand_torch(plan.idx, plan.mask, x, plan.row_dst, n)
+    want = frontier_expand_torch(plan.col, plan.edge_ptr, x, n)
     assert torch.equal(got, want)
     assert torch.equal(frontier_expand_counts(plan, x), got)
     assert int(got[11].max()) > 4000
@@ -157,8 +171,7 @@ def test_frontier_lone_and_reduced_hub_chunks(cuda, b):
                          + [rng.choice(n, m, replace=False)
                             for m in hubs.values()])
     dst = np.concatenate([dst] + [np.full(m, d) for d, m in hubs.items()])
-    host = build_frontier_plan(src, dst, n, n)
-    plan = plan_to_device(host, cuda)
+    plan = build_frontier_plan(src, dst, n, n, cuda)
     assert plan.reduce_dst.tolist() == [11, 12]
     assert plan.scratch_rows == -(-12000 // c) + 2 < plan.chunks.shape[0]
     lone = plan.chunk_row[plan.scratch_rows:].tolist()
@@ -168,8 +181,8 @@ def test_frontier_lone_and_reduced_hub_chunks(cuda, b):
     x = torch.from_numpy(x)
     got = frontier_expand_counts(plan, x.to(cuda))
     assert torch.equal(frontier_expand_counts(plan, x.to(cuda)), got)
-    assert torch.equal(got.cpu(),
-                       frontier_expand_counts(plan_to_device(host, "cpu"), x))
+    assert torch.equal(got.cpu(), frontier_expand_counts(
+        build_frontier_plan(src, dst, n, n, "cpu"), x))
     out = torch.empty_like(got)
     scratch = torch.full((plan.scratch_rows, b), float("nan"), device=cuda)
     flags = torch.empty((n, -(-b // fk.TILE) if b >= 32 else 0),
@@ -185,20 +198,19 @@ def test_frontier_lone_and_reduced_hub_chunks(cuda, b):
 @pytest.mark.parametrize("b", [32, 128])
 def test_frontier_unaligned_panel_takes_the_scalar_path(cuda, b):
     """x whose data_ptr is 4 mod 16 (contiguous, B % 4 == 0)."""
-    plan, x = plan_and_panel(3000, 30000, b, 5000, 32, seed=7)
-    dplan = plan_to_device(plan, cuda)
+    dplan, _, x = plans_and_panel(3000, 30000, b, 5000, 7, cuda)
     buf = torch.empty(x.numel() + 1, device=cuda)
     xs = buf[1:].view(x.shape)
     xs.copy_(x.to(cuda))
     assert xs.data_ptr() % 16 == 4
     got = frontier_expand_counts(dplan, xs)
     assert torch.equal(got, frontier_expand_torch(
-        dplan.idx, dplan.mask, xs, dplan.row_dst, dplan.n_dst))
+        dplan.col, dplan.edge_ptr, xs, dplan.n_dst))
 
 
 def test_empty_plan_and_bad_inputs(cuda):
-    plan = plan_to_device(build_frontier_plan(
-        np.empty(0, np.int64), np.empty(0, np.int64), 10, 12), cuda)
+    plan = build_frontier_plan(np.empty(0, np.int64), np.empty(0, np.int64),
+                               10, 12, cuda)
     out = frontier_expand_counts(plan, torch.ones((10, 3), device=cuda))
     assert tuple(out.shape) == (12, 3) and not out.any()
     with pytest.raises(ValueError):

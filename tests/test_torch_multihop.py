@@ -5,6 +5,8 @@ tombstones, a buffered tail), its pinned `read_view()`, and a port
 `GraphPAL` rebuilt from the reference's arrays by `convert`. Results are
 vertex ids and integer counts, so every comparison is exact; the port's
 dense path runs on the CPU (its plain torch version)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -124,12 +126,50 @@ def test_dense_plans_are_memoized_per_device():
     g = bulk(T, 4)
     plan = T.dense_plan(g, "out", device="cpu")
     assert T.dense_plan(g, "out", device="cpu") is plan
-    assert plan.idx.device.type == "cpu"
+    assert plan.device.type == "cpu"
     keys = [k for k in T.as_engine(g).plan_cache() if k[0][0] == tmh._PLAN_KEY]
     assert [k[0][1:] for k in keys] == [("out", "cpu")]
     # the auto heuristic takes the kernel only where a plan is memoized
     assert tmh._plan_cached(T.as_engine(g), "out", "cpu")
     assert not tmh._plan_cached(T.as_engine(g), "out", "cuda")
+
+
+@pytest.mark.parametrize("direction", ["out", "in"])
+def test_plan_of_a_multigraph_is_the_plan_of_its_distinct_edges(direction):
+    """build_frontier_plan of raw edges with repeats and self-loops equals,
+    tensor for tensor, `dense_plan`'s, which builds from the store's
+    deduplicated keys."""
+    from repro_torch.kernels.frontier_expand import build_frontier_plan
+    src, dst = edges(5)
+    src = np.concatenate([src, src[:500], np.arange(0, N, 7)])
+    dst = np.concatenate([dst, dst[:500], np.arange(0, N, 7)])
+    g = T.GraphPAL.from_edges(src, dst, n_partitions=8, max_id=N - 1)
+    eng = T.as_engine(g)
+    M = eng.n_internal_vertices
+    s, d = (np.asarray(eng.intervals.to_internal(v), np.int64)
+            for v in (src, dst))
+    raw = build_frontier_plan(*((s, d) if direction == "out" else (d, s)),
+                              M, M, "cpu")
+    plan = T.dense_plan(g, direction, device="cpu")
+    assert raw.n_edges == plan.n_edges < src.shape[0]
+    for f in dataclasses.fields(plan):
+        a, b = getattr(raw, f.name), getattr(plan, f.name)
+        if isinstance(b, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b), f.name
+        else:
+            assert a == b, f.name
+
+
+@pytest.mark.parametrize("n,hi", [(0, 5), (1, 5), (2000, 7), (50_000, 2**40),
+                                  (50_000, 100)])
+def test_unique_sorted_is_np_unique(n, hi):
+    """The edge keys' dedup (a sort and a neighbour compare) gives what
+    np.unique gives: the sorted distinct values, negatives included."""
+    rng = np.random.default_rng(n + hi)
+    a = rng.integers(-hi, hi, n, dtype=np.int64)
+    got = tmh._unique_sorted(a)
+    want = np.unique(a)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
 def test_snapshot_paths_wait_for_the_psw_slice():

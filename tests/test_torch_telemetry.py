@@ -265,7 +265,7 @@ def test_frontier_expand_span_tags_reduced_hubs(events):
     the plan as a host int; the catalog describes the tag."""
     from repro_torch.kernels.frontier_expand import (build_frontier_plan,
                                                      frontier_expand_counts,
-                                                     ops, plan_to_device)
+                                                     ops)
     rng = np.random.default_rng(4)
     n, c = 5000, ops.CHUNK_EDGES
     hubs = {7: 3 * c, 8: c + 1, 9: c, 10: ops.LIGHT_EDGES + 1}
@@ -275,7 +275,7 @@ def test_frontier_expand_span_tags_reduced_hubs(events):
                          + [rng.choice(n, m, replace=False)
                             for m in hubs.values()])
     dst = np.concatenate([dst] + [np.full(m, d) for d, m in hubs.items()])
-    plan = plan_to_device(build_frontier_plan(src, dst, n, n), "cpu")
+    plan = build_frontier_plan(src, dst, n, n, "cpu")
     assert plan.reduced_hubs == 2 and plan.reduce_dst.tolist() == [7, 8]
     events()
     frontier_expand_counts(plan, torch.ones((n, 3)))
