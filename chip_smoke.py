@@ -60,10 +60,16 @@ steps of launch/steps.py, runs last:
      no zero row to skip): bitwise equal, with times, the bytes and gather
      bounds, the panel's non-zero rows and a `torch.sparse.mm` yardstick;
   4. PSW analytics on the bulk store: `build_device_graph` (host build and
-     upload timed apart), `pagerank_device` for 5 iterations in
-     `dense_gather` and `psw_windows` (bitwise equal, and bitwise equal
-     again on a second run), held against a float64 numpy PageRank at
-     rtol 1e-3;
+     upload timed apart); the psw_sweep kernels on the DeviceGraph's own
+     arrays at a sweep's shapes (`window_send` bitwise its plain gather,
+     `segment_sum` within 1e-6 of a float64 sum of the same values and
+     bitwise alike in its window and index modes), with times, the 8E +
+     8n bytes bound of an iteration and a `torch.sparse.mm` yardstick;
+     `pagerank_device` for 5 iterations in `dense_gather` and
+     `psw_windows` (bitwise equal, and bitwise equal again on a second
+     run; every sweep through the kernels, by `x.psw.sweep_kernel` and
+     the launch count), held against a float64 numpy PageRank at rtol
+     1e-3;
   5. live snapshots: `LSMTree.snapshot` of phase 2's tree and
      `ManifestView.snapshot` of a pinned view, bitwise equal in every array
      and in PageRank to `build_device_graph` of a `GraphPAL` holding the
@@ -260,7 +266,8 @@ steps of launch/steps.py, runs last:
      EquiformerV2's ring hops counted as collective-permute bytes.
 
 Each kernel's launch count is zeroed just before the path that runs it
-(phases 1-2 for frontier_expand, phase 6's aggregation calls for
+(phases 1-2 for frontier_expand, phase 4's PageRank runs for psw_sweep,
+phase 6's aggregation calls for
 segment_ell and psw_spmm, phase 7's `serve_requests` for flash_attention,
 phase 8's lookups for embedding_bag) and read just after; the disk path's
 own counts (phase 9's dense calls on the store for frontier_expand, its
@@ -303,6 +310,7 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores
+FP64_OPS_PER_S = 34e12      # H100 SXM, fp64 outside the tensor cores
 
 
 def fail(msg: str) -> None:
@@ -644,7 +652,83 @@ def pagerank_fp64(src, dst, n: int, n_iters: int = 5,
     return r
 
 
-def phase_psw(torch, core, g, dev, args, clock):
+def psw_sweep_vs_plain(torch, pw, dg, n_vertices: int, reps: int,
+                       seed: int) -> dict:
+    """The psw_sweep kernels against their plain versions on the
+    DeviceGraph's own arrays, at one PageRank sweep's shapes: window_send
+    bitwise its plain gather; segment_sum in window mode within 1e-6 of a
+    float64 sum of the same values (an empty destination exactly 0) and
+    bitwise its index mode; times, the 8E + 8n bytes bound of an iteration
+    and a torch.sparse.mm yardstick on the same edges."""
+    P, L, E = dg.n_partitions, dg.interval_len, dg.src.shape[1]
+    gen = torch.Generator(device=dg.src.device)
+    gen.manual_seed(seed)
+    x = torch.rand((P, L, 1), generator=gen, device=dg.src.device) / 4
+    win = {"edge_owner": dg.edge_owner, "edge_slot": dg.edge_slot}
+    recv = pw.window_send(x, dg.send_idx)
+    check(torch.equal(recv, pw.window_send_torch(x, dg.send_idx)),
+          "psw_sweep window_send != plain version")
+    out = pw.segment_sum(recv, dg.seg_ptr, **win)
+    check(torch.equal(out, pw.segment_sum(x.reshape(-1, 1), dg.seg_ptr,
+                                          src=dg.src)),
+          "psw_sweep segment_sum: index mode != window mode")
+    want = pw.segment_sum_torch(pw.edge_rows_torch(recv, **win).double(),
+                                dg.seg_ptr)            # float64 sums
+    diff = (out.double() - want).abs()
+    err = float(diff.max())
+    rel = float((diff / want.abs().clamp_min(1e-300)).max())
+    del diff
+    check(rel <= 1e-6, f"psw_sweep segment_sum vs float64: max rel err {rel}")
+
+    def sweep():
+        return pw.segment_sum(pw.window_send(x, dg.send_idx), dg.seg_ptr,
+                              **win)
+
+    def plain():
+        return pw.segment_sum_torch(pw.edge_rows_torch(
+            pw.window_send_torch(x, dg.send_idx), **win), dg.seg_ptr)
+
+    ms = cuda_ms(torch, sweep, reps)
+    exchange_ms = cuda_ms(torch, lambda: pw.window_send(x, dg.send_idx),
+                          reps)
+    sum_ms = cuda_ms(torch, lambda: pw.segment_sum(recv, dg.seg_ptr, **win),
+                     reps)
+    index_sum_ms = cuda_ms(torch, lambda: pw.segment_sum(
+        x.reshape(-1, 1), dg.seg_ptr, src=dg.src), reps)
+    plain_ms = cuda_ms(torch, plain, max(1, reps // 4))
+
+    # yardstick: the same sums as one cuSPARSE SpMV of the CSR adjacency
+    # over the edges before each partition's padding
+    live = torch.arange(E, device=x.device)[None, :] < dg.seg_ptr[:, L:]
+    col = dg.src[live].long()
+    del live
+    counts = (dg.seg_ptr[:, 1:] - dg.seg_ptr[:, :-1]).reshape(-1)
+    crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # "sparse CSR is in beta"
+        adj = torch.sparse_csr_tensor(
+            crow, col, torch.ones(col.shape[0], device=x.device),
+            size=(P * L, P * L))
+    xf = x.reshape(-1, 1)
+    lib = torch.sparse.mm(adj, xf)
+    lib_err = float((lib.double().reshape(P, L, 1) - want).abs().max())
+    del lib, want
+    library_ms = cuda_ms(torch, lambda: torch.sparse.mm(adj, xf), reps)
+    del adj, col, crow
+
+    n_edges = dg.n_edges
+    # an iteration's floor: each edge's two int32 window coordinates and
+    # each vertex's rank read and written once
+    bytes_once = 8 * n_edges + 8 * n_vertices
+    return {"P": P, "L": L, "E_max": E, "window_width": dg.window_width,
+            "edges": n_edges, "max_abs_err": err, "max_rel_err": rel,
+            "ms": ms, "exchange_ms": exchange_ms, "sum_ms": sum_ms,
+            "index_sum_ms": index_sum_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_max_abs_err": lib_err,
+            **bound(bytes_once, n_edges, FP64_OPS_PER_S)}
+
+
+def phase_psw(torch, core, pw, g, dev, args, clock):
     log("phase 4 PSW analytics on the bulk store")
     host = clock("build_device_graph host build", core.build_device_graph, g,
                  device="cpu")
@@ -654,12 +738,28 @@ def phase_psw(torch, core, g, dev, args, clock):
     log(f"  DeviceGraph: {dg.n_edges} edges in {P} partitions, E_max {E}, "
         f"window width {dg.window_width}, {dg_bytes(dg) / 2**30:.2f} GiB on "
         "the device")
+    res = psw_sweep_vs_plain(torch, pw, dg, args.vertices, args.reps,
+                             args.seed + 6)
+    log("  psw_sweep window sweep: " + json.dumps(res))
+
+    def swept() -> int:
+        return int(core.telemetry.snapshot()["counters"].get(
+            "x.psw.sweep_kernel", 0))
+
     runs = {}
+    sweeps0 = swept()
+    pw.ops.launches = 0                        # the PageRank runs...
     for rep in (1, 2):
         for mode in PR_MODES:
             runs[mode, rep] = clock(f"pagerank_device {mode} (5 iters) run "
                                     f"{rep}", core.pagerank_device, dg, 5,
                                     mode=mode)
+    launches, sweeps = pw.ops.launches, swept() - sweeps0   # ...end here
+    # 5 sweeps a run; psw_windows launches the exchange and the sum a
+    # sweep, dense_gather the sum alone
+    check(sweeps == 20, f"{sweeps} kernel sweeps in 4 PageRank runs, not 20")
+    check(launches == 30, f"{launches} psw_sweep launches in 4 PageRank "
+          "runs, not 30")
     first = runs["dense_gather", 1]
     check(torch.equal(first, runs["psw_windows", 1]),
           "pagerank_device: dense_gather != psw_windows")
@@ -677,8 +777,10 @@ def phase_psw(torch, core, g, dev, args, clock):
     check(rel <= 1e-3, f"pagerank_device vs float64: max rel err {rel}")
     log(f"  pagerank: both modes and both runs bitwise equal; max relative "
         f"error vs float64 numpy {rel:.3e} (limit 1e-3); rank sum "
-        f"{float(want.sum()):.1f}, max {float(want.max()):.1f}")
+        f"{float(want.sum()):.1f}, max {float(want.max()):.1f}; {sweeps} "
+        f"kernel sweeps, {launches} psw_sweep launches")
     del dg, runs, first
+    return launches, res
 
 
 def same_device_graph(torch, a, b) -> bool:
@@ -4156,11 +4258,13 @@ def main() -> None:
     from repro_torch.kernels import common
     from repro_torch.kernels import frontier_expand as fe
     from repro_torch.kernels import psw_spmm as ps
+    from repro_torch.kernels import psw_sweep as pw
     from repro_torch.kernels import segment_ell as se
     from repro_torch.kernels.frontier_expand import kernel, ops as fe_ops
     from repro_torch.kernels.embedding_bag import kernel as eb_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.psw_spmm import kernel as ps_kernel
+    from repro_torch.kernels.psw_sweep import kernel as pw_kernel
     from repro_torch.kernels.segment_ell import kernel as se_kernel
 
     dev = torch.device("cuda:0")
@@ -4169,7 +4273,7 @@ def main() -> None:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     build_kernels(common, [kernel, se_kernel, ps_kernel, fa_kernel,
-                           eb_kernel])
+                           eb_kernel, pw_kernel])
 
     clock = Clock(torch)
     disk_launches = phase_disk(torch, core, fe_ops, ps, dev, args, clock)
@@ -4196,7 +4300,7 @@ def main() -> None:
 
     fe_res = phase_kernel(torch, core, fe, kernel, g, seeds, frontier, dev,
                           args.reps, args.seed + 5)
-    phase_psw(torch, core, g, dev, args, clock)
+    pw_launches, pw_res = phase_psw(torch, core, pw, g, dev, args, clock)
     phase_snapshots(torch, core, t, dev, args, clock)
     del t
     agg_launches, ell, spmm_edges = phase_aggregate(torch, core, se, ps, g,
@@ -4285,6 +4389,10 @@ def main() -> None:
                      "src/repro/kernels/flash_attention/flash_attention.py:69",
                      fa_launches, fa_main,
                      fa_shapes + [train["granite"]["attention_backward"]]),
+        kernel_entry("psw_sweep",
+                     "src/repro_torch/kernels/psw_sweep/csrc/psw_sweep.cu",
+                     "src/repro/core/psw.py:436",
+                     pw_launches, pw_res, [pw_res]),
     ]
     for entry in kernels:
         if entry["name"] in disk_launches:

@@ -24,14 +24,18 @@ Two execution engines:
 The host build of a `DeviceGraph` is the reference's algorithm, its arrays
 bitwise equal to the reference's; the window plan's per-(owner, consumer)
 uniques come from one `np.unique` per consumer instead of P. The
-destination segment-sum (`jax.ops.segment_sum` in the reference) is a
-fixed-order float64 scan differenced at the destination bounds, the same on
-every device: no atomics, so a sweep gives the same bits on every run and
-the same bits for every store layout holding the same edges, and a hub of
-millions of in-edges sums to float64 accuracy before the float32 result is
-rounded once. The scan runs along each partition's row on its own, so a
-sweep over R ranks gives each interval the bits the one-device sweep
-gives it.
+destination segment-sum (`jax.ops.segment_sum` in the reference) adds each
+destination's edge values in float64 and rounds the total once to float32:
+a hub of millions of in-edges sums to float64 accuracy. On the card the
+`psw_sweep` kernel (kernels/psw_sweep) gathers each edge's value from the
+window buffer or the vertex state and sums it in one pass, in an order fixed
+by edge positions alone, with no atomics; on the CPU a float64 `index_add_`
+adds the gathered values in edge order. Each gives the same bits on every
+run, for every store layout holding the same edges, and, since a partition
+is summed on its own, for each interval of a sweep over R ranks. The two
+agree bitwise wherever the float64 sum of a destination's float32 terms is
+exact (PageRank's, on the tests' stores), and otherwise to float64 rounding
+before the one cast.
 """
 from __future__ import annotations
 
@@ -41,12 +45,15 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from ..kernels import psw_sweep
 from . import telemetry
 from .lsm import LSMTree
 from .multihop import _resolve_device
 from .pal import GraphPAL
 
 GraphLike = Union[GraphPAL, LSMTree]
+
+_M_SWEEP_KERNEL = telemetry.counter("x.psw.sweep_kernel")
 
 
 def _host_partitions(g: GraphLike) -> list:
@@ -446,30 +453,26 @@ def segment_ptr(dst_local: torch.Tensor, mask: torch.Tensor,
                               bounds.expand(key.shape[0], L + 1).contiguous())
 
 
-# -- collectives, with transposes standing in on one device -----------------
+# -- the sweep's gathers; over a process group, its collectives -------------
 def _exchange_windows(x: torch.Tensor, send_idx: torch.Tensor,
                       group=None) -> torch.Tensor:
     """PSW window exchange.
 
     x: (Pl, L, d) owner-local vertex state; send_idx: (Pl, P, W)
     owner-local rows destined for each global consumer. Returns recv:
-    (Pl, P, W, d) with recv[c, o] = x_owner_o[send_idx[o, c]]. Over a
-    process group this is ONE `all_to_all_single`: the send buffer split
-    over consumers, the receive buffer concatenated over owners (the
-    reference's `all_to_all(split_axis=1, concat_axis=0)`); without one it
-    is the same math via a transpose. The reference's `take_along_axis`
-    broadcasts x over the consumer axis; torch.gather does not, so x is
-    expanded (a view, no copy)."""
-    Pl, L, d = x.shape
-    P, W = send_idx.shape[1], send_idx.shape[2]
-    idx = send_idx.long()[..., None].expand(Pl, P, W, d)
-    send = torch.gather(x[:, None].expand(Pl, P, L, d), 2, idx)
-    # send: (Pl owner, P consumer, W, d)
+    (Pl, P, W, d) with recv[c, o] = x_owner_o[send_idx[o, c]]. The send
+    buffer is built consumer-major (`psw_sweep.window_send`), so on one
+    device it is recv itself; over a process group it is split over
+    consumers for ONE `all_to_all_single`, and the receive buffer is
+    concatenated over owners (the reference's `all_to_all(split_axis=1,
+    concat_axis=0)`)."""
+    send = psw_sweep.window_send(x, send_idx)          # (P consumer, Pl owner, W, d)
     if group is None:
-        return send.transpose(0, 1)  # (P consumer, P owner, W, d)
+        return send
     import torch.distributed as dist
+    Pl, P, W, d = x.shape[0], *send_idx.shape[1:], x.shape[2]
     world = dist.get_world_size(group)
-    buf = send.transpose(0, 1).contiguous()        # (P consumer, Pl owner)
+    buf = send.contiguous()
     out = torch.empty_like(buf)
     dist.all_to_all_single(out, buf, group=group)
     # out: (world owner rank, Pl consumer, Pl owner, W, d)
@@ -489,58 +492,13 @@ def _gather_all(x: torch.Tensor, group=None) -> torch.Tensor:
     return out.reshape(-1, x.shape[-1])
 
 
-_SCAN_BLOCK = 1024
-
-
-def _rowwise_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive cumsum along dim 1 of a 2-D tensor, in a fixed order.
-    torch scans each row of a tensor with more than one row left to right
-    within one CUDA block; a single row would go to a device-wide scan
-    whose float grouping depends on timing, so a zero row is added. This
-    is how torch 2.11.0+cu128 scans on an H100; it is not documented, so
-    `test_segment_sum_sorted_is_deterministic` in
-    tests/test_torch_kernel_cuda.py holds it on the card."""
-    if x.shape[0] > 1:
-        return torch.cumsum(x, 1)
-    return torch.cumsum(torch.cat([x, torch.zeros_like(x)]), 1)[:1]
-
-
-def segment_sum_sorted(msgs: torch.Tensor,
-                       seg_ptr: torch.Tensor) -> torch.Tensor:
-    """out[p, v] = Σ msgs[p, seg_ptr[p, v]:seg_ptr[p, v + 1]] for (P, E, d)
-    msgs and a (P, L + 1) destination CSR: the reference's per-partition
-    sorted `segment_sum`. A float64 inclusive scan in blocks of
-    `_SCAN_BLOCK` (each block scanned in order, then the block totals), read
-    at the segment bounds and differenced, then rounded once to the input
-    dtype. Fixed order, no atomics: deterministic on every device."""
-    P, E, d = msgs.shape
-    L = seg_ptr.shape[1] - 1
-    rows = msgs.permute(0, 2, 1).reshape(P * d, E).to(torch.float64)
-    nb = -(-E // _SCAN_BLOCK)
-    if nb * _SCAN_BLOCK != E:
-        rows = torch.nn.functional.pad(rows, (0, nb * _SCAN_BLOCK - E))
-    inner = _rowwise_cumsum(rows.reshape(P * d * nb, _SCAN_BLOCK))
-    del rows
-    inner = inner.reshape(P * d, nb, _SCAN_BLOCK)
-    carry = _rowwise_cumsum(inner[:, :, -1])          # (P*d, nb) inclusive
-    inner[:, 1:] += carry[:, :-1, None]
-    del carry
-    scan = torch.nn.functional.pad(inner.reshape(P * d, nb * _SCAN_BLOCK),
-                                   (1, 0))            # scan[:, i] = Σ_{<i}
-    del inner
-    ptr = seg_ptr[:, None, :].expand(P, d, L + 1).reshape(P * d, L + 1)
-    at = torch.gather(scan, 1, ptr)
-    out = (at[:, 1:] - at[:, :-1]).to(msgs.dtype)
-    return out.reshape(P, d, L).permute(0, 2, 1).contiguous()
-
-
 def edge_centric_sweep_arrays(
     src: torch.Tensor,          # (Pl, E) global src IDs
     dst_local: torch.Tensor,    # (Pl, E)
     mask: torch.Tensor,         # (Pl, E)
     interval_len: int,
     x: torch.Tensor,            # (Pl, L, d) vertex state (owner-local rows)
-    msg_fn: Callable[[torch.Tensor], torch.Tensor],
+    msg_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     mode: str = "psw_windows",
     group=None,
     send_idx: Optional[torch.Tensor] = None,     # (Pl, P, W)
@@ -550,38 +508,44 @@ def edge_centric_sweep_arrays(
 ) -> torch.Tensor:
     """One edge-centric PSW sweep over per-shard arrays: gather source state
     (from the whole vertex state, or through the PSW window exchange),
-    apply `msg_fn`, segment-sum into local destinations. `group`: a
-    process group whose ranks each hold Pl = P / world intervals, or None
-    (Pl = P, one device). Returns (Pl, L, d') sums."""
+    apply `msg_fn`, segment-sum into local destinations. `msg_fn` None is
+    the identity: the sweep then gathers and sums in one pass (on the card,
+    one `psw_sweep` launch); a caller's `msg_fn` gets the gathered (Pl, E,
+    d) source state and its messages are summed. The `msg_fn` path is kept
+    for parity with the reference's API, which its tests compare against;
+    no caller in the program passes one. `group`: a process group
+    whose ranks each hold Pl = P / world intervals, or None (Pl = P, one
+    device). Returns (Pl, L, d') sums. On the card every sweep counts in
+    `x.psw.sweep_kernel`."""
     if x.ndim == 2:
         x = x[..., None]
+    if seg_ptr is None:
+        seg_ptr = segment_ptr(dst_local, mask, interval_len)
     with telemetry.span("x.psw.window_gather"):
         if mode == "dense_gather":
-            x_all = _gather_all(x, group)                # (P*L, d)
-            src_state = x_all[src]                       # (Pl, E, d)
+            table = _gather_all(x, group)                # (P*L, d)
+            index = {"src": src}
         elif mode == "psw_windows":
             if send_idx is None:
                 raise ValueError("window plan not built: build the "
                                  "DeviceGraph with with_window_plan=True")
-            recv = _exchange_windows(x, send_idx, group)  # (Pl, P, W, d)
-            w = recv.shape[2]
-            flat = recv.reshape(recv.shape[0], -1, x.shape[-1])
-            idx = (edge_owner * w + edge_slot).long()  # < P*W: no wrap
-            src_state = torch.gather(
-                flat, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
+            table = _exchange_windows(x, send_idx, group)  # (Pl, P, W, d)
+            index = {"edge_owner": edge_owner, "edge_slot": edge_slot}
         else:
             raise ValueError(mode)
-    msgs = msg_fn(src_state) * mask[..., None]
-    if seg_ptr is None:
-        seg_ptr = segment_ptr(dst_local, mask, interval_len)
+    if x.device.type == "cuda":
+        _M_SWEEP_KERNEL.inc()
     with telemetry.span("x.psw.segment_sum"):
-        return segment_sum_sorted(msgs, seg_ptr)
+        if msg_fn is None:
+            return psw_sweep.segment_sum(table, seg_ptr, **index)
+        msgs = msg_fn(psw_sweep.edge_rows_torch(table, **index))
+        return psw_sweep.segment_sum(msgs, seg_ptr)
 
 
 def edge_centric_sweep(
     dg: DeviceGraph,
     x: torch.Tensor,
-    msg_fn: Callable[[torch.Tensor], torch.Tensor],
+    msg_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     mode: str = "psw_windows",
     group=None,
 ) -> torch.Tensor:
@@ -605,6 +569,6 @@ def pagerank_device(dg: DeviceGraph, n_iters: int = 5, damping: float = 0.85,
         r = torch.ones(inv_deg.shape, dtype=torch.float32, device=dg.device)
         for _ in range(n_iters):
             contrib = (r * inv_deg)[..., None]           # (Pl, L, 1)
-            acc = edge_centric_sweep(dg, contrib, lambda s: s, mode, group)
+            acc = edge_centric_sweep(dg, contrib, None, mode, group)
             r = (1.0 - damping) + damping * acc[..., 0]
         return r

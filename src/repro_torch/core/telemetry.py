@@ -186,11 +186,15 @@ CATALOG: Dict[str, Tuple[str, str]] = {
     # --- device PSW (core/psw.py) ---
     "x.psw.pagerank": ("span", "one pagerank_device call"),
     "x.psw.window_gather": ("span",
-                            "one sweep's source-state gather: window "
-                            "exchange and edge gather, or the dense gather"),
+                            "one sweep's window exchange (the send buffer "
+                            "from send_idx, and over a process group the "
+                            "all_to_all); the dense gather's all_gather"),
     "x.psw.segment_sum": ("span",
-                          "one sweep's segment_sum_sorted: float64 cast, "
-                          "pad, scans, gather at the bounds, cast back"),
+                          "one sweep's gather and float64 destination sum "
+                          "(on the card one psw_sweep launch); with a "
+                          "caller's msg_fn, the message build and the sum"),
+    "x.psw.sweep_kernel": ("counter",
+                           "sweeps that took the psw_sweep kernel"),
     # --- shard runtime (core/shardrouter.py) ---
     "shard.rpc.requests": ("counter", "router-side RPC calls, by op label"),
     "shard.rpc.seconds": ("histogram",

@@ -30,7 +30,9 @@ def test_every_module_imports_without_jax_or_repro():
                  "kernels.flash_attention.kernel",
                  "kernels.flash_attention.ops", "kernels.flash_attention.ref",
                  "kernels.embedding_bag.kernel", "kernels.embedding_bag.ops",
-                 "kernels.embedding_bag.ref", "models.transformer",
+                 "kernels.embedding_bag.ref", "kernels.psw_sweep.kernel",
+                 "kernels.psw_sweep.ops", "kernels.psw_sweep.ref",
+                 "models.transformer",
                  "configs.granite_3_2b", "configs.granite_34b",
                  "configs.qwen3_14b", "launch.serve", "core.failpoints",
                  "core.integrity", "core.codec", "core.walog", "core.disk",

@@ -10,8 +10,9 @@ kernel and the plain version add the same values in the same slot order);
 psw_spmm is rtol 1e-5, atol 1e-5 against the plain version (TestPswSpmm's
 tolerance: index_add_ sums in another order) and 1e-4 against the edge
 oracle, taken against the row's largest |value| on a 3,000-term hub row
-whose terms cancel, and bitwise equal across runs; the PSW sweep's segment-sum is bitwise equal across runs and
-within 1e-6 of a float64 sum; flash_attention is rtol/atol 2e-5 against its
+whose terms cancel, and bitwise equal across runs; the PSW sweep's gather-and-sum (psw_sweep) is bitwise equal
+across runs and within 1e-6 of a float64 sum, and bitwise the CPU's float64
+`index_add_` where the float64 sums are exact (values on a 1/64 grid); flash_attention is rtol/atol 2e-5 against its
 plain version in float32 (TestFlashAttention's tolerance: the fp32 SIMT
 kernel and cuBLAS sum in another order) and 2e-2 in bfloat16 (test_bf16's:
 the kernel rounds P to bf16 for P·V, on wgmma + TMA); embedding_bag is bitwise (both add
@@ -31,6 +32,7 @@ from repro_torch.graph import pad_to_ell
 from repro_torch.kernels import embedding_bag as eb
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import psw_spmm as ps
+from repro_torch.kernels import psw_sweep
 from repro_torch.kernels import segment_ell as se
 from repro_torch.kernels.frontier_expand import (build_frontier_plan,
                                                  frontier_expand_counts,
@@ -328,9 +330,10 @@ def test_psw_spmm_matches_plain_and_edges(cuda, f, hub):
                                      (1, 100_000, 70_000),
                                      (16, 1 << 20, 600_000)])
 def test_segment_sum_sorted_is_deterministic(cuda, P, E, hub):
-    """The PSW sweep's float64 scan gives the same bits on every run, for a
-    single partition (one scan row per block total) and for a hub segment
-    of up to 2**24 edges, and sums to float64 accuracy."""
+    """The PSW sweep's kernel sum gives the same bits on every run, for a
+    single partition and for a hub segment of up to 2**24 edges (spread
+    over thousands of blocks and summed by the fix-up pass in block order),
+    and sums to float64 accuracy."""
     L = 64
     gen = torch.Generator(device=cuda)
     gen.manual_seed(P + E)
@@ -342,12 +345,184 @@ def test_segment_sum_sorted_is_deterministic(cuda, P, E, hub):
                                    device=cuda)]).sort().values
     mask = torch.ones((P, E), dtype=torch.bool, device=cuda)
     seg_ptr = psw.segment_ptr(dst.expand(P, E).to(torch.int32), mask, L)
-    first = psw.segment_sum_sorted(msgs, seg_ptr)
+    n0 = psw_sweep.ops.launches
+    first = psw_sweep.segment_sum(msgs, seg_ptr)
+    assert psw_sweep.ops.launches == n0 + 1
     for _ in range(3):
-        assert torch.equal(psw.segment_sum_sorted(msgs, seg_ptr), first)
+        assert torch.equal(psw_sweep.segment_sum(msgs, seg_ptr), first)
     want = torch.zeros((P, L, 1), dtype=torch.float64, device=cuda)
     want.index_add_(1, dst, msgs.double())
     torch.testing.assert_close(first, want.float(), rtol=1e-6, atol=1e-6)
+
+
+def grid_values(gen, shape, device):
+    """float32 values on a 1/64 grid in [-8, 8): float64 sums of up to
+    2**40 of them are exact, so every summation order gives their bits."""
+    return (torch.randint(-512, 512, shape, generator=gen, device=device)
+            .float() / 64)
+
+
+def segments(counts, E, device):
+    """(P, L + 1) destination CSRs of per-partition in-degree lists, each
+    partition's edges a prefix of E slots."""
+    ptr = [np.concatenate([[0], np.cumsum(c)]) for c in counts]
+    assert all(p[-1] <= E for p in ptr)
+    return torch.tensor(np.stack(ptr), dtype=torch.int64, device=device)
+
+
+def padded(msgs, seg_ptr):
+    """msgs with every slot past its partition's last edge set to NaN: the
+    kernel must never read one."""
+    pos = torch.arange(msgs.shape[1], device=msgs.device)
+    pad = pos[None, :] >= seg_ptr[:, -1:]
+    return msgs.masked_fill(pad[..., None], float("nan"))
+
+
+@pytest.mark.parametrize("d", [1, 3])
+def test_psw_sweep_empty_segments_and_padding(cuda, d):
+    """Runs of empty destinations, a partition of padding only and one with
+    no padding: the kernel's sums are bitwise the CPU's float64
+    `index_add_`, empty destinations read 0, and padding is never read."""
+    rng = np.random.default_rng(5)
+    L, E = 3000, 9000
+    sparse = np.zeros(L, np.int64)
+    sparse[rng.choice(L, 40, replace=False)] = rng.integers(1, 200, 40)
+    full = rng.multinomial(E, np.ones(L) / L)
+    counts = [sparse, np.zeros(L, np.int64), full]
+    seg_ptr = segments(counts, E, cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d)
+    msgs = padded(grid_values(gen, (3, E, d), cuda), seg_ptr)
+    got = psw_sweep.segment_sum(msgs, seg_ptr)
+    want = psw_sweep.segment_sum_torch(msgs.cpu(), seg_ptr.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert not got[1].any() and not got[0][torch.from_numpy(sparse) == 0].any()
+    assert torch.equal(psw_sweep.segment_sum(msgs, seg_ptr), got)
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_psw_sweep_segments_around_one_tile(cuda, d):
+    """Segments just under, at and over one block's merge items (TILE),
+    twice and many times over, between short ones, at several offsets: the
+    sums of segments split over blocks are bitwise the CPU's."""
+    from repro_torch.kernels.psw_sweep.kernel import TILE
+    rng = np.random.default_rng(d)
+    counts = []
+    for shift in (0, 1, 700, TILE - 3):
+        c = rng.integers(0, 30, 4000)
+        long_ = [TILE - 1, TILE, TILE + 1, 2 * TILE, 2 * TILE + 1,
+                 9 * TILE + 17]
+        c[rng.choice(np.arange(50, 4000), len(long_), replace=False)] = long_
+        c[0] = shift
+        counts.append(c)
+    E = max(int(c.sum()) for c in counts) + 300
+    seg_ptr = segments(counts, E, cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    msgs = padded(grid_values(gen, (len(counts), E, d), cuda), seg_ptr)
+    got = psw_sweep.segment_sum(msgs, seg_ptr)
+    assert torch.equal(got.cpu(), psw_sweep.segment_sum_torch(msgs.cpu(),
+                                                              seg_ptr.cpu()))
+    # rounding: not on the grid, against a float64 sum
+    x = torch.rand((len(counts), E, d), generator=gen, device=cuda)
+    got = psw_sweep.segment_sum(x, seg_ptr)
+    want = psw_sweep.segment_sum_torch(x.double(), seg_ptr)
+    torch.testing.assert_close(got, want.float(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["dense_gather", "psw_windows"])
+def test_psw_sweep_message_function_on_the_card(cuda, mode):
+    """A DeviceGraph with hubs of TILE - 1, TILE and TILE + 1 in-edges and
+    a state of width 2 on the grid: the sweep under a caller's msg_fn (2 in,
+    3 out: built by plain torch, summed by the kernel) and the fused
+    identity sweep are bitwise the CPU's; the identity through msg_fn is
+    bitwise the fused one; both modes agree."""
+    from repro_torch.core import GraphPAL
+    from repro_torch.kernels.psw_sweep.kernel import TILE
+    rng = np.random.default_rng(23)
+    n = 30_000
+    src = [rng.integers(0, n, 150_000)]
+    dst = [rng.integers(0, n, 150_000)]
+    for hub, deg in ((7, TILE - 1), (4_000, TILE), (29_999, TILE + 1)):
+        src.append(rng.choice(n, deg, replace=False))
+        dst.append(np.full(deg, hub))
+    g = GraphPAL.from_edges(np.concatenate(src), np.concatenate(dst),
+                            n_partitions=8, max_id=n - 1)
+    dg, dh = (psw.build_device_graph(g, device=dev) for dev in (cuda, "cpu"))
+    x = (torch.from_numpy(rng.integers(-256, 256, (8, dh.interval_len, 2)))
+         .float() / 64)
+
+    def msg(s):
+        return torch.stack([s[..., 0] - s[..., 1], 2 * s[..., 1],
+                            s[..., 0]], -1)
+
+    got = psw.edge_centric_sweep(dg, x.to(cuda), msg, mode)
+    assert got.shape == (8, dh.interval_len, 3)
+    assert torch.equal(got.cpu(), psw.edge_centric_sweep(dh, x, msg, mode))
+    fused = psw.edge_centric_sweep(dg, x.to(cuda), None, mode)
+    assert torch.equal(fused.cpu(), psw.edge_centric_sweep(dh, x, None, mode))
+    assert torch.equal(psw.edge_centric_sweep(dg, x.to(cuda), lambda s: s,
+                                              mode), fused)
+    other = "psw_windows" if mode == "dense_gather" else "dense_gather"
+    assert torch.equal(psw.edge_centric_sweep(dg, x.to(cuda), None, other),
+                       fused)
+
+
+def test_pagerank_device_counts_a_kernel_sweep_an_iteration(cuda):
+    """Each of a 5-iteration `pagerank_device`'s sweeps on the card takes
+    the kernel: `x.psw.sweep_kernel` rises by 5, and the kernels launch
+    twice a sweep in psw_windows mode (exchange, sum) and once in
+    dense_gather mode."""
+    from repro_torch.core import GraphPAL, telemetry
+    rng = np.random.default_rng(29)
+    g = GraphPAL.from_edges(rng.integers(0, 5000, 40_000),
+                            rng.integers(0, 5000, 40_000), n_partitions=4,
+                            max_id=4999)
+    dg = psw.build_device_graph(g, device=cuda)
+
+    def swept() -> int:
+        return int(telemetry.snapshot()["counters"].get(
+            "x.psw.sweep_kernel", 0))
+
+    was = telemetry.enabled()
+    telemetry.set_enabled(True)
+    try:
+        for mode, per_sweep in (("psw_windows", 2), ("dense_gather", 1)):
+            k0, n0 = swept(), psw_sweep.ops.launches
+            psw.pagerank_device(dg, 5, mode=mode)
+            assert swept() == k0 + 5, mode
+            assert psw_sweep.ops.launches == n0 + 5 * per_sweep, mode
+    finally:
+        telemetry.set_enabled(was)
+
+
+def test_psw_sweep_allocates_no_edge_sized_buffer(cuda):
+    """One psw_windows sweep on a DeviceGraph allocates the window buffer
+    and a few (P, L) float buffers, and no (P, E) index or float64 array:
+    the peak over the sweep stays below recv's bytes plus four (P, L)
+    float32 buffers, while one (P, E) int64 array alone is over 5x that
+    margin."""
+    from repro_torch.core import GraphPAL
+    rng = np.random.default_rng(31)
+    n = 200_000
+    g = GraphPAL.from_edges(rng.integers(0, n, 4_000_000),
+                            rng.integers(0, n, 4_000_000), n_partitions=16,
+                            max_id=n - 1)
+    dg = psw.build_device_graph(g, device=cuda)
+    P, L, E = dg.n_partitions, dg.interval_len, dg.src.shape[1]
+    x = torch.rand((P, L, 1), device=cuda)
+    psw.edge_centric_sweep(dg, x)            # the library is loaded
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = psw.edge_centric_sweep(dg, x)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    recv = P * P * dg.window_width * 4
+    margin = 4 * P * L * 4
+    assert P * E * 8 > 5 * margin
+    assert extra <= recv + margin, (extra, recv, margin)
+    assert out.shape == (P, L, 1)
 
 
 def test_psw_spmm_empty_blocks_without_filler_tiles(cuda):

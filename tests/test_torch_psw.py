@@ -11,7 +11,8 @@ destination in float32 with `segment_sum`, the port in float64 rounded once
 to float32, so the two differ by float32 rounding only. The sweep over
 four gloo ranks (`DeviceGraph.shard`, `group=`) is bitwise the one-device
 sweep in both modes, and within the message test's 1e-5 of the
-reference's `shard_map` over four host devices."""
+reference's `shard_map` over four host devices. The CPU segment sum is a
+float64 `index_add_` in edge order, bitwise, whatever the padding."""
 import numpy as np
 import pytest
 import torch
@@ -22,6 +23,8 @@ from repro.core import psw as rpsw
 import repro_torch.core as T
 from repro_torch import convert
 from repro_torch.core import psw as tpsw
+from repro_torch.core import telemetry
+from repro_torch.kernels import psw_sweep
 from test_torch_multihop import N, bulk, live
 
 FIELDS = ("src", "dst_local", "mask", "outdeg", "send_idx", "edge_owner",
@@ -183,7 +186,7 @@ def test_reference_device_graph_carried_across():
 
 
 def test_hub_sums_to_float64_accuracy():
-    """A hub with 200,000 in-edges: the fixed-order float64 scan keeps
+    """A hub with 200,000 in-edges: the float64 destination sum keeps
     PageRank within float32 rounding of a float64 numpy PageRank, where a
     float32 running sum of that many terms would drift."""
     n, hub = 50_000, 123
@@ -318,3 +321,82 @@ def test_shard_takes_each_ranks_rows():
                            whole), name
         assert getattr(parts[1], name).shape[0] == 2
     assert parts[0].n_partitions == dg.n_partitions
+
+
+def sweep_messages(seed):
+    """A bulk store's DeviceGraph on the CPU and float32 messages (P, E, 2)
+    with a wide range of exponents (float64 sums that round), padding
+    slots NaN."""
+    dg = T.build_device_graph(bulk(T, seed), device="cpu")
+    rng = np.random.default_rng(seed)
+    shape = (*dg.src.shape, 2)
+    m = rng.normal(size=shape) * 10.0 ** rng.integers(-6, 6, shape)
+    msgs = torch.from_numpy(m.astype(np.float32))
+    msgs[~dg.mask] = float("nan")
+    return dg, msgs
+
+
+def test_cpu_segment_sum_is_a_float64_index_add():
+    """The CPU sum of each destination is a float64 `index_add_` of its
+    messages in edge order, rounded once: bitwise, on values whose sums
+    round, with padding never read."""
+    dg, msgs = sweep_messages(13)
+    got = psw_sweep.segment_sum(msgs, dg.seg_ptr)
+    P, L = dg.n_partitions, dg.interval_len
+    want = torch.zeros((P, L, 2), dtype=torch.float64)
+    for p in range(P):
+        live = dg.mask[p]
+        want[p].index_add_(0, dg.dst_local[p][live].long(),
+                           msgs[p][live].double())
+    assert torch.equal(got, want.float())
+    assert not torch.isnan(got).any()
+
+
+def test_cpu_segment_sum_same_bits_under_other_padding():
+    """The same edges padded to a wider E_max give the same bits."""
+    dg, msgs = sweep_messages(14)
+    wide = torch.cat([msgs, torch.full((msgs.shape[0], 333, 2),
+                                       float("nan"))], 1)
+    assert torch.equal(psw_sweep.segment_sum(wide, dg.seg_ptr),
+                       psw_sweep.segment_sum(msgs, dg.seg_ptr))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_identity_sweep_equals_message_sweep(mode):
+    """The fused identity sweep (msg_fn None, what pagerank_device runs)
+    is bitwise the sweep with the identity as a caller's msg_fn."""
+    dg = T.build_device_graph(bulk(T, 15), device="cpu")
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.normal(size=(dg.n_partitions, dg.interval_len,
+                                          3)).astype(np.float32))
+    fused = T.edge_centric_sweep(dg, x, None, mode)
+    assert fused.shape == x.shape
+    assert torch.equal(fused, T.edge_centric_sweep(dg, x, lambda s: s, mode))
+
+
+def test_window_send_is_consumer_major():
+    """The exchange's send buffer: [c, o, w] = x[o, send_idx[o, c, w]]."""
+    dg = T.build_device_graph(bulk(T, 16), device="cpu")
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.normal(size=(dg.n_partitions, dg.interval_len,
+                                          2)).astype(np.float32))
+    send = psw_sweep.window_send(x, dg.send_idx)
+    P, W = dg.n_partitions, dg.window_width
+    assert send.shape == (P, P, W, 2)
+    for c, o in ((0, 0), (1, 3), (P - 1, 2)):
+        assert torch.equal(send[c, o], x[o][dg.send_idx[o, c].long()])
+
+
+def test_sweep_kernel_counter_stays_zero_on_cpu():
+    """No CPU sweep counts as a kernel sweep."""
+    dg = T.build_device_graph(bulk(T, 17), device="cpu")
+    was = telemetry.enabled()
+    telemetry.set_enabled(True)
+    try:
+        before = telemetry.snapshot()["counters"].get("x.psw.sweep_kernel", 0)
+        for mode in MODES:
+            T.pagerank_device(dg, 5, mode=mode)
+        after = telemetry.snapshot()["counters"].get("x.psw.sweep_kernel", 0)
+        assert after == before
+    finally:
+        telemetry.set_enabled(was)
